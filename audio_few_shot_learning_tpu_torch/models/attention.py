@@ -1,0 +1,75 @@
+"""Self-attention view fusion.
+
+Counterpart of the JAX package's ``models/attention.py``: one post-norm
+``TransformerEncoderLayer`` (multi-head self-attention, then a ReLU FFN,
+each with a residual and LayerNorm eps 1e-5) over the V view tokens, then
+the tokens concatenated into one ``[B, V*D]`` vector. Written out as
+explicit matmuls and a softmax with scale ``1/sqrt(dh)``; parameter names
+follow torch's layer (``self_attn.in_proj_weight``, ``self_attn.out_proj``,
+``linear1``, ``linear2``, ``norm1``, ``norm2``) under
+``attention_model.encoder_layer``, as in the reference checkpoint.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audio_few_shot_learning_tpu_torch.config import AttentionConfig
+
+
+class MultiheadSelfAttention(nn.Module):
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim must divide num_heads")
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        # torch MultiheadAttention's init
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, v, d = x.shape
+        h = self.num_heads
+        dh = d // h
+        q, k, vv = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        q, k, vv = (t.reshape(b, v, h, dh).transpose(1, 2) for t in (q, k, vv))
+        attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(dh), dim=-1)
+        ctx = (attn @ vv).transpose(1, 2).reshape(b, v, d)
+        return self.out_proj(ctx)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm (``norm_first=False``) encoder layer; dropout is inactive in eval."""
+
+    def __init__(self, cfg: AttentionConfig):
+        super().__init__()
+        d = cfg.embed_dim
+        self.self_attn = MultiheadSelfAttention(d, cfg.num_heads)
+        self.linear1 = nn.Linear(d, cfg.ffn_dim)
+        self.linear2 = nn.Linear(cfg.ffn_dim, d)
+        self.norm1 = nn.LayerNorm(d, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("attention implements eval mode only in this slice")
+        x = self.norm1(x + self.self_attn(x))
+        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: AttentionConfig):
+        super().__init__()
+        self.encoder_layer = TransformerEncoderLayer(cfg)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, V, D] view tokens -> [B, V*D] fused features."""
+        b, v, d = x.shape
+        return self.encoder_layer(x).reshape(b, v * d)

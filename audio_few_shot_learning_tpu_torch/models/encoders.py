@@ -1,0 +1,193 @@
+"""Backbone encoder: the 4-block CNN + RNN hybrid.
+
+Counterpart of the JAX package's ``models/encoders.py`` in NCHW:
+
+* conv block = 3x3 conv (padding 1) -> BatchNorm -> max-pool(pool_dim,
+  floor mode) -> ReLU. Pooling before the ReLU equals the reference's
+  ReLU -> pool (max commutes with the monotone ReLU) and is the JAX
+  package's order;
+* Hybrid = conv stack -> ``[B, T', F'*C]`` sequence (F' major, as the JAX
+  package flattens ``(F', C)``) -> RNN/GRU/LSTM with an input + output skip
+  connection -> last timestep -> Dropout(0.3) -> BatchNorm1d -> Linear, the
+  head in float32.
+
+Convolutions run in ``compute_dtype``; the BatchNorm affine is applied in
+that dtype from float32 running statistics (``BandwidthBatchNorm``), or
+folded into the conv weights on eval paths (``fold_bn_eval``). This slice
+serves: the modules implement eval mode only.
+
+Module names follow the reference checkpoint (``backbone.encoder.
+conv_encoder.{i}.{0,1}``, ``backbone.encoder.seq_layers``,
+``backbone.encoder.logits.{1,2}``), so a reference ``state_dict`` loads with
+``strict=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audio_few_shot_learning_tpu_torch.config import CNNConfig, HybridConfig
+from audio_few_shot_learning_tpu_torch.ops.rnn import Recurrent
+
+NUM_BLOCKS = 4
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` -> the torch dtype."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def _eval_only(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(
+            f"{type(module).__name__} implements eval mode only; call .eval() "
+            "(training comes with the training slice)"
+        )
+
+
+class BandwidthBatchNorm(nn.BatchNorm2d):
+    """Eval BatchNorm as ``x * inv + shift`` with ``inv`` and ``shift``
+    computed in float32 from the running statistics and applied in the
+    activation's dtype (torch eps 1e-5)."""
+
+    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-channel float32 ``(inv, shift)`` of the eval affine."""
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return inv, self.bias - self.running_mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _eval_only(self)
+        inv, shift = self.fold()
+        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class ConvBlock(nn.Sequential):
+    """conv3x3 -> BN -> maxpool(pool, stride=pool) -> ReLU; children ``0``
+    (Conv2d) and ``1`` (BN) as in the reference."""
+
+    def __init__(self, in_channels: int, channels: int, pool: Tuple[int, int], fold_bn_eval: bool):
+        super().__init__(nn.Conv2d(in_channels, channels, 3, padding=1), BandwidthBatchNorm(channels))
+        self.pool = tuple(pool)
+        self.fold_bn_eval = fold_bn_eval
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self[0], self[1]
+        _eval_only(bn)
+        if self.fold_bn_eval:
+            # eval BN is a per-channel affine and conv is linear, so
+            # BN(conv(x, K, b)) == conv(x, K*inv, b*inv + shift)
+            inv, shift = bn.fold()
+            weight = conv.weight * inv[:, None, None, None]
+            bias = conv.bias * inv + shift
+            x = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
+        else:
+            x = bn(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1))
+        ph, pw = self.pool
+        if x.shape[2] < ph or x.shape[3] < pw:
+            raise ValueError(
+                f"pool {self.pool} collapses a {x.shape[2]}x{x.shape[3]} map to zero — "
+                "reduce pool_dim or use longer inputs"
+            )
+        return F.relu(F.max_pool2d(x, (ph, pw)))
+
+
+def conv_output_shape(feat_shape: Tuple[int, int], pool: Tuple[int, int]) -> Tuple[int, int]:
+    """(F', T') after the four floor-mode pools."""
+    f, t = feat_shape
+    for _ in range(NUM_BLOCKS):
+        f, t = f // pool[0], t // pool[1]
+    if f == 0 or t == 0:
+        raise ValueError(
+            f"pool {tuple(pool)} collapses a {feat_shape[0]}x{feat_shape[1]} input to zero — "
+            "reduce pool_dim or use longer inputs"
+        )
+    return f, t
+
+
+class _LogitsHead(nn.Sequential):
+    """Dropout(0.3) -> BatchNorm1d -> Linear(out_dim), in float32."""
+
+    def __init__(self, width: int, out_dim: int):
+        super().__init__(nn.Dropout(0.3), nn.BatchNorm1d(width), nn.Linear(width, out_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _eval_only(self)
+        return self[2](self[1](x))
+
+
+class StandardHybrid(nn.Module):
+    """4-block CNN -> time-major sequence -> recurrent stack with skip -> head.
+
+    Input ``[B, F, T]``. The recurrent hidden size is the flattened conv width
+    F'*C, which the skip connection needs.
+    """
+
+    def __init__(
+        self,
+        cfg: HybridConfig,
+        feat_shape: Tuple[int, int],
+        compute_dtype: str = "bfloat16",
+        fold_bn_eval: bool = False,
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = torch_dtype(compute_dtype)
+        c = cfg.hidden_channels
+        # the input gets one channel axis (the JAX package's x[..., None])
+        self.conv_encoder = nn.ModuleList(
+            ConvBlock(1 if i == 0 else c, c, cfg.pool_dim, fold_bn_eval) for i in range(NUM_BLOCKS)
+        )
+        fp, _ = conv_output_shape(feat_shape, cfg.pool_dim)
+        self.hidden = fp * c
+        self.seq_layers = Recurrent(
+            self.hidden, self.hidden, cfg.seq_layers, cfg.seq_type, cfg.bidirectional
+        )
+        self.logits = _LogitsHead(self.hidden, cfg.out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x[:, None].to(self.compute_dtype)
+        for block in self.conv_encoder:
+            x = block(x)
+        x = x.to(torch.float32)
+        b, c, fp, tp = x.shape
+        seq = x.permute(0, 3, 2, 1).reshape(b, tp, fp * c)  # [B, T', (F', C)]
+        out, _ = self.seq_layers(seq)
+        fwd = out[..., : self.hidden]
+        if self.cfg.bidirectional:
+            seq_out = fwd + out[..., self.hidden :] + seq
+        else:
+            seq_out = fwd + seq
+        return self.logits(seq_out[:, -1])
+
+
+class EncoderModule(nn.Module):
+    """The reference's wrapper: the encoder lives under ``backbone.encoder``."""
+
+    def __init__(self, encoder: nn.Module):
+        super().__init__()
+        self.encoder = encoder
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+
+def make_backbone(
+    encoder_name: str,
+    cnn_cfg: CNNConfig,
+    hybrid_cfg: HybridConfig,
+    feat_shape: Tuple[int, int],
+    compute_dtype: str = "bfloat16",
+    fold_bn_eval: bool = False,
+) -> EncoderModule:
+    if encoder_name == "Hybrid":
+        return EncoderModule(StandardHybrid(hybrid_cfg, feat_shape, compute_dtype, fold_bn_eval))
+    if encoder_name == "CNN":
+        raise NotImplementedError("the StandardCNN encoder is a later slice of the port")
+    raise ValueError(f"unknown encoder {encoder_name!r}")

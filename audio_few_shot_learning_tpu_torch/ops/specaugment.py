@@ -1,0 +1,220 @@
+"""SpecAugment on the device, producing the reference's fixed 4-view expansion.
+
+Counterpart of the JAX package's ``ops/specaugment.py``. From one batch of
+spectrograms produce ``[original, time_warp, time_mask, freq_mask]``, each
+augmentation applied to a fresh copy of the original. Mask draws are shared
+across the items of one call (per episode); the time-warp control points are
+drawn per item.
+
+Randomness is data here: ``draw_views_params`` turns a ``torch.Generator``
+into ``(ys, tmask, fmask)`` and every other function is deterministic in
+those, so tests can hand the same draws to this package and the JAX one.
+
+``spec_augment_views`` takes the plain version (``views_reference``) for a
+CPU tensor and launches the fused kernel (``csrc/specaugment.cu``, K1) for a
+CUDA tensor: one read of the input, four writes.
+
+Layouts follow the JAX package: specs ``[B, F, T]`` -> views
+``[B, 4, F, T]``, or with a leading episode axis ``[E, B, F, T]`` ->
+``[E, B, 4, F, T]`` with per-episode masks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from audio_few_shot_learning_tpu_torch.config import SpecAugParams
+from audio_few_shot_learning_tpu_torch.ops import cuda_build
+
+NUM_VIEWS = 4
+Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # ys, tmask, fmask
+
+
+def hermite_warp_positions(warp_p: torch.Tensor, warp_d: torch.Tensor, t_len: int) -> torch.Tensor:
+    """Source positions (normalized [-1, 1]) of the time warp for control
+    draws ``warp_p``, ``warp_d`` (any shape ``[...]``) -> ``[..., t_len]``.
+
+    Control points x = [0, warp_p, T-1], y = [-1, (warp_p-warp_d)*2/(T-1)-1, 1]
+    with finite-difference tangents, evaluated at xs = 0..T-1.
+    """
+    warp_p = warp_p.to(torch.float32)[..., None]
+    warp_d = warp_d.to(torch.float32)[..., None]
+    x0, x1, x2 = 0.0, warp_p, float(t_len - 1)
+    y0 = -1.0
+    y1 = (warp_p - warp_d) * 2.0 / (t_len - 1) - 1.0
+    y2 = 1.0
+
+    m0 = (y1 - y0) / (x1 - x0)
+    m1 = (y2 - y1) / (x2 - x1)
+    mm = (m0 + m1) * 0.5
+
+    xs = torch.arange(t_len, dtype=torch.float32, device=warp_p.device)
+    in_second = xs > warp_p
+
+    xa = torch.where(in_second, x1, x0)
+    xb = torch.where(in_second, x2, x1)
+    ya = torch.where(in_second, y1, y0)
+    yb = torch.where(in_second, y2, y1)
+    ma = torch.where(in_second, mm, m0)
+    mb = torch.where(in_second, m1, mm)
+
+    dx = xb - xa
+    t = (xs - xa) / dx
+    h00 = (1.0 + 2.0 * t) * (1.0 - t) ** 2
+    h10 = t * (1.0 - t) ** 2
+    h01 = t * t * (3.0 - 2.0 * t)
+    h11 = t * t * (t - 1.0)
+    return h00 * ya + h10 * ma * dx + h01 * yb + h11 * mb * dx
+
+
+def _uniform_int(gen: torch.Generator, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
+    """Uniform integers in [low, high) with per-element bounds (high > low)."""
+    u = torch.rand(low.shape, generator=gen, device=low.device)
+    span = high - low
+    return low + torch.minimum((u * span).floor().long(), span - 1)
+
+
+def _mask_bounds(gen, shape, max_len: int, length: int, device):
+    """Interval draws ``w ~ U[1, max_len]``, ``w0 ~ U[0, max(length - w, 1))``;
+    returns ``(lo, hi) = (w0, w0 + w)``, each of ``shape``."""
+    w = torch.randint(1, max_len + 1, shape, generator=gen, device=device)
+    zero = torch.zeros_like(w)
+    w0 = _uniform_int(gen, zero, (length - w).clamp_min(1))
+    return w0, w0 + w
+
+
+def mask_bounds_freq(gen, shape, num_mask: int, mask_param: int, f_len: int, device):
+    """``num_mask`` frequency-mask intervals per entry of ``shape``: f ~ U[1,
+    mask_param], f0 ~ U[0, F-f-1]. Returns (lo, hi) of ``shape + (num_mask,)``."""
+    return _mask_bounds(gen, tuple(shape) + (num_mask,), mask_param, f_len, device)
+
+
+def mask_bounds_time(gen, shape, num_mask: int, mask_param: int, p: float, t_len: int, device):
+    """Time-mask intervals: t ~ U[1, min(mask_param, int(p*T))], t0 ~ U[0, T-t-1]."""
+    max_len = max(min(mask_param, int(p * t_len)), 1)
+    return _mask_bounds(gen, tuple(shape) + (num_mask,), max_len, t_len, device)
+
+
+def interval_mask(lo: torch.Tensor, hi: torch.Tensor, length: int) -> torch.Tensor:
+    """OR of [lo_i, hi_i) intervals: lo, hi ``[..., M]`` -> bool ``[..., length]``."""
+    idx = torch.arange(length, device=lo.device)
+    return ((idx >= lo[..., None]) & (idx < hi[..., None])).any(dim=-2)
+
+
+def draw_views_params(
+    gen: torch.Generator,
+    params: SpecAugParams,
+    n_episodes: int,
+    n_items: int,
+    f_len: int,
+    t_len: int,
+    device,
+) -> Draws:
+    """Random draws of one ``spec_augment_views`` call per episode:
+    ys ``[E, B, T]`` (per item), tmask ``[E, T]`` and fmask ``[E, F]`` (per episode)."""
+    e = (n_episodes,)
+    tlo, thi = mask_bounds_time(gen, e, params.num_mask, params.mask_param, params.p, t_len, device)
+    flo, fhi = mask_bounds_freq(gen, e, params.num_mask, params.mask_param, f_len, device)
+    w = params.W
+    warp_p = torch.randint(w, t_len - w, (n_episodes, n_items), generator=gen, device=device)
+    warp_d = torch.randint(-w, w, (n_episodes, n_items), generator=gen, device=device)
+    ys = hermite_warp_positions(warp_p, warp_d, t_len)
+    return ys, interval_mask(tlo, thi, t_len), interval_mask(flo, fhi, f_len)
+
+
+def warp_gather(spec: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Bilinear time warp as a two-tap gather along T (grid_sample with
+    align_corners=True, zero padding). spec ``[..., F, T]``, ys ``[..., T]``."""
+    t_len = spec.shape[-1]
+    src = (ys + 1.0) * 0.5 * (t_len - 1)
+    s0 = torch.floor(src)
+    w1 = src - s0
+    w0 = 1.0 - w1
+    s1 = s0 + 1.0
+    w0 = torch.where((s0 >= 0) & (s0 <= t_len - 1), w0, 0.0)[..., None, :]
+    w1 = torch.where((s1 >= 0) & (s1 <= t_len - 1), w1, 0.0)[..., None, :]
+    i0 = s0.clamp(0, t_len - 1).long()[..., None, :].expand(spec.shape)
+    i1 = s1.clamp(0, t_len - 1).long()[..., None, :].expand(spec.shape)
+    g0 = torch.gather(spec, -1, i0).to(torch.float32)
+    g1 = torch.gather(spec, -1, i1).to(torch.float32)
+    return (w0 * g0 + w1 * g1).to(spec.dtype)
+
+
+def views_reference(spec, ys, tmask, fmask, mask_value: float) -> torch.Tensor:
+    """Plain PyTorch version of K1 (= ``_views_xla``): spec ``[E, B, F, T]``,
+    ys ``[E, B, T]``, tmask ``[E, T]``, fmask ``[E, F]`` -> ``[E, B, 4, F, T]``."""
+    warped = warp_gather(spec, ys)
+    tview = spec.masked_fill(tmask[:, None, None, :], mask_value)
+    fview = spec.masked_fill(fmask[:, None, :, None], mask_value)
+    return torch.stack([spec, warped, tview, fview], dim=2)
+
+
+def views_cuda(spec, ys, tmask, fmask, mask_value: float) -> torch.Tensor:
+    """Launch K1 on CUDA tensors (same contract as ``views_reference``);
+    counts the launch in ``views_cuda.launches``."""
+    if spec.dim() != 4:
+        raise ValueError(f"spec must be [E, B, F, T], got {tuple(spec.shape)}")
+    e, b, f_len, t_len = spec.shape
+    if tuple(ys.shape) != (e, b, t_len) or tuple(tmask.shape) != (e, t_len) or tuple(
+        fmask.shape
+    ) != (e, f_len):
+        raise ValueError(
+            f"draws do not match spec {tuple(spec.shape)}: ys {tuple(ys.shape)}, "
+            f"tmask {tuple(tmask.shape)}, fmask {tuple(fmask.shape)}"
+        )
+    if not all(t.is_cuda for t in (spec, ys, tmask, fmask)):
+        raise ValueError("views_cuda needs CUDA tensors")
+    entry = {torch.float32: "afsl_specaugment_views_f32", torch.bfloat16: "afsl_specaugment_views_bf16"}
+    if spec.dtype not in entry:
+        raise TypeError(f"SpecAugment kernel takes float32 or bfloat16 specs, got {spec.dtype}")
+    x = spec.contiguous()
+    y = ys.to(torch.float32).contiguous()
+    tm = tmask.to(torch.uint8).contiguous()
+    fm = fmask.to(torch.uint8).contiguous()
+    out = torch.empty((e, b, NUM_VIEWS, f_len, t_len), device=spec.device, dtype=spec.dtype)
+    fn = cuda_build.function(
+        "specaugment",
+        entry[spec.dtype],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    status = fn(
+        cuda_build.ptr(x), cuda_build.ptr(y), cuda_build.ptr(tm), cuda_build.ptr(fm),
+        cuda_build.ptr(out), e, b, f_len, t_len, float(mask_value),
+        cuda_build.stream_handle(spec.device),
+    )
+    cuda_build.check_launch(status, "SpecAugment kernel")
+    views_cuda.launches += 1
+    return out
+
+
+views_cuda.launches = 0
+
+
+def spec_augment_views(
+    spec: torch.Tensor,
+    gen: Optional[torch.Generator],
+    params: SpecAugParams,
+    draws: Optional[Draws] = None,
+) -> torch.Tensor:
+    """``[B, F, T] -> [B, 4, F, T]`` (or ``[E, B, F, T] -> [E, B, 4, F, T]``
+    with per-episode masks): original, warp, time mask, freq mask.
+
+    ``draws = (ys, tmask, fmask)`` fixes the randomness (shapes as
+    ``draw_views_params`` gives, without the E axis for an unbatched spec);
+    otherwise they are drawn from ``gen``, which must live on ``spec``'s device.
+    """
+    single = spec.dim() == 3
+    if single:
+        spec = spec[None]
+    e, b, f_len, t_len = spec.shape
+    if draws is None:
+        draws = draw_views_params(gen, params, e, b, f_len, t_len, spec.device)
+    elif single:
+        draws = tuple(d[None] for d in draws)
+    ys, tmask, fmask = draws
+    fn = views_reference if spec.device.type == "cpu" else views_cuda
+    out = fn(spec, ys, tmask.bool(), fmask.bool(), float(params.mask_value))
+    return out[0] if single else out

@@ -1,0 +1,216 @@
+"""The serving engine: episodic evaluation and fixed-episode prediction.
+
+Counterpart of the forward-only half of the JAX package's
+``train/engine.py``. Every eval batch samples E episodes from the
+device-resident store, makes SpecAugment's views for support and queries
+(K1 on the card), runs the episode model with the fused head (K2 on the
+card) and scores the argmax, with no host synchronization until the
+accuracies of the whole run are read back. ``predict_episode`` runs the same
+pipeline on one caller-supplied episode.
+
+The engine runs on the card unless the caller asks for the CPU, through
+``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
+such request it raises. Training, multi-segment evaluation and wav input
+come with later slices.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
+from audio_few_shot_learning_tpu_torch.data.episodes import EpisodeBatch, sample_episode
+from audio_few_shot_learning_tpu_torch.data.store import PackedStore
+from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
+from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
+
+NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
+
+
+def resolve_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
+    """``device`` if given, else the CPU when the config says ``"cpu"``, else
+    the card. Raises rather than running on the CPU when no card is present."""
+    if device is None:
+        device = "cpu" if exp.device == "cpu" else f"cuda:{exp.gpu_index}"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' or set \"device\": \"cpu\" "
+            "in the experiment config to run on the CPU"
+        )
+    return device
+
+
+class Trainer:
+    """Owns the model, the stores and the run's random generator."""
+
+    def __init__(
+        self,
+        exp: ExperimentConfig,
+        mdl: ModelConfig,
+        train_store: PackedStore,
+        val_store: Optional[PackedStore] = None,
+        test_store: Optional[PackedStore] = None,
+        seed: Optional[int] = None,
+        device: Union[str, torch.device, None] = None,
+    ):
+        if exp.input_type == "wav":
+            raise NotImplementedError("wav input needs the mel kernel (K3), a later slice of the port")
+        self.exp = exp
+        self.mdl = mdl
+        self.device = resolve_device(exp, device)
+        self.train_store = train_store
+        self.val_store = val_store
+        self.test_store = test_store
+        self.specaug = exp.specaug_params.use
+        self.v_support = NUM_SPECAUG_VIEWS if self.specaug else 1
+        self.eval_episode_batch = exp.tpu.eval_episode_batch
+
+        seed = exp.tpu.seed if seed is None else seed
+        with torch.random.fork_rng(devices=[]):  # seeded torch-default init
+            torch.manual_seed(seed)
+            model = FewShotEpisodeModel(exp, mdl, tuple(train_store.feat_shape))
+        self.model = model.to(self.device).eval()
+        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.last_eval_seconds: Optional[float] = None
+
+    # ------------------------------------------------------------------
+    # views
+    # ------------------------------------------------------------------
+
+    def _v_query(self, augment_query: bool) -> int:
+        return NUM_SPECAUG_VIEWS if self.specaug and augment_query else 1
+
+    def _make_views(
+        self,
+        specs: torch.Tensor,
+        enabled: bool,
+        gen: torch.Generator,
+        draws: Optional[Draws] = None,
+    ) -> torch.Tensor:
+        """``[E, B, F, T] -> [E, B, V, F, T]``: one augmentation call for all
+        E episodes, masks drawn per episode from ``gen`` (``draws`` fixes them)."""
+        if not enabled:
+            return specs[:, :, None]
+        return spec_augment_views(specs, gen, self.exp.specaug_params, draws=draws)
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def _episode_scores(
+        self,
+        ep: EpisodeBatch,
+        n_way: int,
+        augment_query: bool,
+        gen: torch.Generator,
+        draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+    ) -> torch.Tensor:
+        """Scores ``[E, Q*, n_way]`` of an assembled episode batch;
+        ``draws = (support_draws, query_draws)`` fixes the augmentation."""
+        sup_draws, qry_draws = draws if draws is not None else (None, None)
+        sup_views = self._make_views(ep.support, self.specaug, gen, sup_draws)
+        qry_views = self._make_views(ep.query, self._v_query(augment_query) > 1, gen, qry_draws)
+        return self.model(sup_views, qry_views, ep.support_labels, n_way).scores
+
+    def _eval_episodes(
+        self,
+        ep: EpisodeBatch,
+        n_way: int,
+        augment_query: bool,
+        draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+    ) -> torch.Tensor:
+        """Accuracy per episode ``[E]`` (single segment)."""
+        scores = self._episode_scores(ep, n_way, augment_query, self.gen, draws)
+        tile = 1 if self.exp.use_attention else self._v_query(augment_query)
+        q_labels = ep.query_labels.repeat(1, tile)
+        return (scores.argmax(dim=-1) == q_labels).to(torch.float32).mean(dim=-1)
+
+    @torch.inference_mode()
+    def evaluate(
+        self,
+        store: PackedStore,
+        n_tasks: int,
+        n_way: int,
+        k_shot: int,
+        k_query: int,
+        augment_query: bool,
+        multisegment: bool = False,
+        tie_strategy: str = "",
+    ) -> Tuple[float, float]:
+        """Mean and std of per-task accuracy over ``n_tasks`` episodes."""
+        if multisegment:
+            raise NotImplementedError("multi-segment evaluation is a later slice of the port")
+        eligible = int((store.class_counts >= k_shot + k_query).sum())
+        if eligible < n_way:
+            raise ValueError(
+                f"only {eligible} classes have {k_shot + k_query} items; {n_way}-way needs {n_way}"
+            )
+        batch = min(self.eval_episode_batch, n_tasks)
+        t0 = time.perf_counter()
+        accs = []
+        remaining = n_tasks
+        while remaining > 0:
+            ep = sample_episode(self.gen, store, n_way, k_shot, k_query, batch)
+            accs.append(self._eval_episodes(ep, n_way, augment_query))
+            remaining -= batch
+        acc = torch.cat(accs)[:n_tasks].cpu().numpy()
+        self.last_eval_seconds = time.perf_counter() - t0
+        return float(acc.mean()), float(acc.std())
+
+    def test(self) -> Dict[str, float]:
+        exp = self.exp
+        if exp.multi_segm:
+            raise NotImplementedError("multi-segment test is a later slice of the port")
+        mean, std = self.evaluate(
+            self.test_store,
+            n_tasks=exp.n_testing_tasks,
+            n_way=exp.n_way_test,
+            k_shot=exp.n_shot_test,
+            k_query=exp.n_query_test,
+            augment_query=exp.test_query_augmentations,
+        )
+        return {"mean_accuracy": mean, "accuracy_std": std}
+
+    @torch.inference_mode()
+    def predict_episode(
+        self,
+        support: np.ndarray,
+        support_labels: Sequence[int],
+        query: np.ndarray,
+        n_way: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Classify fixed query items against a fixed support set: the
+        serving entry point (``cli/predict.py``).
+
+        support ``[S, F, T]`` normalized spec features, support_labels ``[S]``
+        ints in ``[0, n_way)``, query ``[Q, F, T]``. Returns (pred ``[Q]``,
+        scores ``[Q, n_way]`` f32). Support takes the training augmentation,
+        queries follow ``test_query_augmentations``. ``generator`` (on this
+        trainer's device) or ``draws = (support_draws, query_draws)``, each
+        ``(ys [1, S|Q, T], tmask [1, T], fmask [1, F])``, fix the augmentation;
+        by default the draws come from a generator seeded with 0.
+        """
+        labels = torch.as_tensor(np.asarray(support_labels), dtype=torch.long)
+        if n_way is None:
+            n_way = int(labels.max()) + 1
+        sup = torch.as_tensor(np.asarray(support, np.float32)).to(self.device)[None]
+        qry = torch.as_tensor(np.asarray(query, np.float32)).to(self.device)[None]
+        ep = EpisodeBatch(
+            support=sup,
+            support_labels=labels.to(self.device)[None],
+            query=qry,
+            query_labels=torch.zeros((1, qry.shape[1]), dtype=torch.long, device=self.device),
+        )
+        gen = generator or torch.Generator(device=self.device).manual_seed(0)
+        scores = self._episode_scores(ep, n_way, self.exp.test_query_augmentations, gen, draws)
+        # no-attention + augmented queries: Q*vq rows view-major; keep the
+        # original-view block
+        scores = scores[0, : qry.shape[1]].to(torch.float32).cpu()
+        return scores.argmax(dim=-1).numpy(), scores.numpy()

@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Imports nothing of JAX or of the JAX package. In order it:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the hand-written kernels from ``audio_few_shot_learning_tpu_torch/
+   csrc/`` with ``nvcc`` (one process per source, all at once) into
+   ``build/torch_kernels/``;
+3. kernel phase: holds K1 (SpecAugment 4-view emitter) and K2 (episode head)
+   against their plain PyTorch versions on the card at the eval path's
+   shapes, and times kernel, plain version and, where one exists, the one
+   PyTorch call computing the same function. Times are device times: 20
+   calls captured in one CUDA graph and replayed between CUDA events, so the
+   host's cost of issuing a call is not in them;
+4. slice phase: on a seeded packed store of the benchmark's geometry (35
+   classes x 40 items x 128x157 f32) and the flagship model with seeded
+   weights (Hybrid, 64 channels, pool 3, RNN 64, attention 64/1/256, bf16),
+   runs ``Trainer.test()`` over 64 single-segment tasks (4 eval batches of 16
+   episodes) and one ``predict_episode``, with the kernels' launch counts set
+   to 0 just before each and read just after; the launches per eval batch
+   and per prediction must be K1 2 (support, queries) and K2 1. Then it
+   times 4 more eval runs and 10 more predictions, and runs each once more
+   under ``torch.profiler``: device time by kernel and the device's busy
+   share of the wall time;
+5. card-vs-CPU phase: one float32 eval batch of 16 episodes with the same
+   weights and the same augmentation draws on the card (kernels) and on the
+   CPU (plain versions);
+6. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+
+Any failure raises and exits non-zero. Exits non-zero without a result when
+no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+N_MELS, N_FRAMES = 128, 157
+N_WAY, K_SHOT, K_QUERY = 5, 5, 5
+EVAL_BATCH = 16
+TEST_TASKS = 64
+EXPECTED_LAUNCHES = [2, 1]  # K1, K2 per eval batch and per prediction
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
+K1_TOL_F32 = 1e-5  # same separately rounded f32 ops as the plain version
+K2_ATOL, K2_RTOL = 1e-4, 1e-5  # another summation order than the plain matmul
+SLICE_ATOL, SLICE_ARGMAX_AGREE = 1e-3, 0.99
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events. The host issues
+    each call once, at capture, so its cost is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: wall time, the device's busy
+    time and share of it, device time and calls per kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = {}
+    for evt in prof.key_averages():
+        us = float(getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0))
+        if str(getattr(evt, "device_type", "")).endswith("CUDA") and us > 0:
+            t, n = kernels.get(evt.key, (0.0, 0))
+            kernels[evt.key] = (t + us, n + evt.count)
+    busy = sum(t for t, _ in kernels.values())
+    if busy == 0:
+        raise AssertionError("the profiler saw no device time")
+
+    def per_launch_us(name):
+        t = sum(v[0] for k, v in kernels.items() if name in k)
+        n = sum(v[1] for k, v in kernels.items() if name in k)
+        return t / n if n else None
+
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(
+        wall_us=wall_us, device_busy_us=busy, device_busy_share=busy / wall_us,
+        k1_us_per_launch=per_launch_us("views_kernel"),
+        k2_us_per_launch=per_launch_us("episode_scores_kernel"),
+        top_kernels_us_calls=[[k[:80], t, n] for k, (t, n) in top],
+    )
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_phase(dev):
+    """K1 and K2 against their plain versions at the eval path's shapes."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import SpecAugParams
+    from audio_few_shot_learning_tpu_torch.ops import protohead, specaugment
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = SpecAugParams(use=True, mask_param=16, W=22, num_mask=1, mask_value=0.0, p=0.282)
+    rows = {}
+
+    # K1: one launch per view call; the eval batch makes E=16 episodes x 25 items
+    k1 = []
+    for dtype in (torch.float32, torch.bfloat16):
+        spec = torch.randn(
+            (EVAL_BATCH, N_WAY * K_SHOT, N_MELS, N_FRAMES), generator=gen, device=dev
+        ).to(dtype)
+        ys, tm, fm = specaugment.draw_views_params(
+            gen, params, EVAL_BATCH, N_WAY * K_SHOT, N_MELS, N_FRAMES, dev
+        )
+        args = (spec, ys, tm, fm, params.mask_value)
+        out = specaugment.views_cuda(*args)
+        ref = specaugment.views_reference(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        # bf16: at most one bf16 rounding step (2^-8 relative) at the largest value
+        tol = K1_TOL_F32 if dtype == torch.float32 else 2.0**-8 * spec.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"K1 {dtype} disagrees with its plain version: {err} > {tol}")
+        ms = graph_ms(lambda: specaugment.views_cuda(*args))
+        plain = graph_ms(lambda: specaugment.views_reference(*args))
+        b_ms, b_by = bound_ms(nbytes(spec, ys, tm, fm) + nbytes(out), 3 * out.numel() / 4)
+        k1.append(dict(dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tolerance=tol,
+                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
+    rows["K1"] = k1
+
+    # K2: one launch per eval batch; flagship E=16, S=Q=25, D=V*64=256, N=5,
+    # plus a ragged case (N=7, uneven classes, one empty class)
+    k2 = []
+    for name, n_way, labels_np in (
+        ("flagship", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT)),
+        ("ragged", 7, np.array([0] * 9 + [1] * 2 + [2] * 5 + [3] * 1 + [4] * 4 + [5] * 4)),
+    ):
+        e, s, q, d = EVAL_BATCH, len(labels_np), N_WAY * K_QUERY, 4 * 64
+        sup = torch.randn((e, s, d), generator=gen, device=dev)
+        qry = torch.randn((e, q, d), generator=gen, device=dev)
+        lab = torch.as_tensor(labels_np, device=dev).expand(e, -1).contiguous()
+        out = protohead.episode_scores_cuda(sup, lab, qry, n_way)
+        ref = protohead.batched_episode_scores_reference(sup, lab, qry, n_way)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not torch.allclose(out, ref, atol=K2_ATOL, rtol=K2_RTOL):
+            raise AssertionError(f"K2 {name} disagrees with its plain version: max err {err}")
+        ms = graph_ms(lambda: protohead.episode_scores_cuda(sup, lab, qry, n_way))
+        plain = graph_ms(lambda: protohead.batched_episode_scores_reference(sup, lab, qry, n_way))
+        protos = protohead.compute_prototypes(sup, lab, n_way)
+        library = graph_ms(lambda: torch.cdist(qry, protos))
+        flops = e * (s * d + q * n_way * 2 * d + q * 2 * d + n_way * 3 * d)
+        b_ms, b_by = bound_ms(nbytes(sup, qry, lab.to(torch.int32), out), flops)
+        k2.append(dict(case=name, n_way=n_way, max_abs_err=err, tolerance=[K2_ATOL, K2_RTOL],
+                       ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by))
+    rows["K2"] = k2
+    return rows
+
+
+def make_store(dev):
+    from audio_few_shot_learning_tpu_torch.data.store import PackedStore
+
+    n_classes, per_class = 35, 40
+    rng = np.random.default_rng(0)
+    segments = rng.standard_normal((n_classes * per_class, N_MELS, N_FRAMES), dtype=np.float32)
+    labels = np.repeat(np.arange(n_classes), per_class)
+    return PackedStore.from_flat_arrays(
+        segments, np.ones(len(labels), np.int64), labels, n_classes, device=dev
+    )
+
+
+def flagship_exp(**tpu):
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig.from_dict({
+        "encoder_name": "Hybrid", "use_attention": True, "use_contrastive": True,
+        "input_type": "spec", "n_testing_tasks": TEST_TASKS,
+        "specaug_params": {"use": True, "mask_param": 16, "W": 22, "num_mask": 1,
+                           "mask_value": 0, "p": 0.282},
+        "test_query_augmentations": True,
+        "tpu": {"eval_episode_batch": EVAL_BATCH, "compute_dtype": "bfloat16", **tpu},
+    })
+
+
+def slice_phase(dev, store):
+    """Trainer.test() and predict_episode on the flagship model, bf16."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.ops import protohead, specaugment
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    kernels = (specaugment.views_cuda, protohead.episode_scores_cuda)
+    trainer = Trainer(flagship_exp(), ModelConfig(), store, test_store=store, device=dev, seed=0)
+    trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans
+
+    for k in kernels:
+        k.launches = 0
+    result = trainer.test()
+    eval_launches = [k.launches for k in kernels]
+    eval_s = [trainer.last_eval_seconds]
+    acc = result["mean_accuracy"]
+    if not (np.isfinite(acc) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"test accuracy out of range: {result}")
+    n_batches = TEST_TASKS // EVAL_BATCH
+    per_batch = [n / n_batches for n in eval_launches]
+    if per_batch != EXPECTED_LAUNCHES:
+        raise AssertionError(
+            f"eval path launched K1, K2 {per_batch} times per batch ({eval_launches} in "
+            f"{n_batches} batches); expected {EXPECTED_LAUNCHES}"
+        )
+
+    def run_eval():
+        trainer.evaluate(store, TEST_TASKS, N_WAY, K_SHOT, K_QUERY, True)
+
+    for _ in range(4):
+        run_eval()
+        eval_s.append(trainer.last_eval_seconds)
+    eval_profile = profile(run_eval)
+
+    rng = np.random.default_rng(1)
+    items = rng.integers(0, store.num_items, 2 * N_WAY * K_SHOT)
+    segs = store.segments[torch.as_tensor(items, device=dev)].float().cpu().numpy()
+    support, query = segs[: N_WAY * K_SHOT], segs[N_WAY * K_SHOT :]
+    labels = np.repeat(np.arange(N_WAY), K_SHOT)
+    trainer.predict_episode(support, labels, query)  # warm-up
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    pred, scores = trainer.predict_episode(support, labels, query)
+    predict_ms = [1e3 * (time.perf_counter() - t0)]
+    predict_launches = [k.launches for k in kernels]
+    if scores.shape != (N_WAY * K_QUERY, N_WAY) or not np.isfinite(scores).all():
+        raise AssertionError(f"predict scores malformed: {scores.shape}")
+    if pred.shape != (N_WAY * K_QUERY,) or pred.min() < 0 or pred.max() >= N_WAY:
+        raise AssertionError(f"predictions malformed: {pred}")
+    if predict_launches != EXPECTED_LAUNCHES:
+        raise AssertionError(
+            f"predict path launched K1, K2 {predict_launches} times; expected {EXPECTED_LAUNCHES}"
+        )
+
+    def run_predict():
+        trainer.predict_episode(support, labels, query)
+
+    for _ in range(10):
+        t0 = time.perf_counter()
+        run_predict()
+        predict_ms.append(1e3 * (time.perf_counter() - t0))
+    predict_profile = profile(run_predict)
+
+    eps = [TEST_TASKS / t for t in eval_s]
+    return dict(
+        test=result, eval_seconds=eval_s, eval_episodes_per_s=eps,
+        eval_episodes_per_s_median=float(np.median(eps)),
+        eval_batch_ms_median=1e3 * float(np.median(eval_s)) / n_batches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        predict_ms=predict_ms, predict_ms_median=float(np.median(predict_ms)),
+        eval_launches=eval_launches, eval_launches_per_batch=per_batch,
+        predict_launches=predict_launches,
+        eval_profile=eval_profile, predict_profile=predict_profile,
+    )
+
+
+def card_vs_cpu_phase(dev, store):
+    """One float32 eval batch (E=16, as the timed path), same weights and
+    draws, card vs CPU."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    e = EVAL_BATCH
+    exp = flagship_exp(compute_dtype="float32", eval_episode_batch=e)
+    card = Trainer(exp, ModelConfig(), store, device=dev, seed=3)
+    cpu = Trainer(exp, ModelConfig(), store, device="cpu", seed=3)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+
+    ep = sample_episode(torch.Generator(device=dev).manual_seed(5), store, N_WAY, K_SHOT, K_QUERY, e)
+    ep_cpu = type(ep)(**{f.name: getattr(ep, f.name).cpu() for f in dataclasses.fields(ep)})
+    g = torch.Generator().manual_seed(6)
+    draws_cpu = tuple(
+        draw_views_params(g, exp.specaug_params, e, n, N_MELS, N_FRAMES, "cpu")
+        for n in (N_WAY * K_SHOT, N_WAY * K_QUERY)
+    )
+    draws_card = tuple(tuple(x.to(dev) for x in d) for d in draws_cpu)
+    with torch.inference_mode():
+        s_card = card._episode_scores(ep, N_WAY, True, card.gen, draws_card).cpu()
+        s_cpu = cpu._episode_scores(ep_cpu, N_WAY, True, cpu.gen, draws_cpu)
+    err = (s_card - s_cpu).abs().max().item()
+    agree = (s_card.argmax(-1) == s_cpu.argmax(-1)).float().mean().item()
+    if not (err <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE):
+        raise AssertionError(f"card vs CPU: max err {err} (atol {SLICE_ATOL}), argmax agree {agree}")
+    return dict(max_abs_err=err, atol=SLICE_ATOL, argmax_agree=agree, episodes=e)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from audio_few_shot_learning_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build(["specaugment", "protohead"])
+    build_s = time.perf_counter() - t0
+    print(f"built {sorted(logs) or 'nothing (cached)'} from csrc/ with nvcc for sm_90a "
+          f"in {build_s:.1f} s", flush=True)
+    for name, text in sorted(logs.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kern = kernel_phase(dev)
+    print("kernel phase: " + json.dumps(kern), flush=True)
+
+    store = make_store(dev)
+    slc = slice_phase(dev, store)
+    print(f"slice phase ({card}): " + json.dumps(slc), flush=True)
+
+    t0 = time.perf_counter()
+    cmp = card_vs_cpu_phase(dev, store)
+    cmp["seconds"] = time.perf_counter() - t0
+    print("card vs CPU: " + json.dumps(cmp), flush=True)
+
+    k1_f32, k2_flag = kern["K1"][0], kern["K2"][0]
+    common = [
+        dict(name="specaugment_views",
+             source="audio_few_shot_learning_tpu_torch/csrc/specaugment.cu",
+             replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
+             library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
+             extra=dict(bf16=kern["K1"][1])),
+        dict(name="episode_scores",
+             source="audio_few_shot_learning_tpu_torch/csrc/protohead.cu",
+             replaces="audio_few_shot_learning_tpu/ops/protohead.py:136", row=k2_flag,
+             library_ms=k2_flag["library_ms"], in_eval_us=slc["eval_profile"]["k2_us_per_launch"],
+             extra=dict(ragged=kern["K2"][1])),
+    ]
+    kernels = []
+    for i, k in enumerate(common):
+        r = k["row"]
+        kernels.append(dict(
+            name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+            launches=slc["eval_launches"][i], launches_per_eval_batch=slc["eval_launches_per_batch"][i],
+            launches_predict=slc["predict_launches"][i], max_abs_err=r["max_abs_err"],
+            tolerance=r["tolerance"], ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=k["library_ms"], profiler_us_in_eval=k["in_eval_us"], **k["extra"],
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
