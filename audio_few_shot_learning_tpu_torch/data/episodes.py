@@ -10,21 +10,26 @@ replaced by one ``torch.Generator`` on the store's device:
   uniform ordered sample, split support | query;
 * one uniformly random segment per item.
 
-Multi-segment test episodes are a later slice.
+``sample_episode`` draws from a ``PackedStore`` of spectrograms,
+``sample_wav_episode`` from a ``PackedWavStore`` of waveforms, with the same
+class and item draws. Multi-segment test episodes are a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
+from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 
 
 @dataclasses.dataclass
 class EpisodeBatch:
-    """A batch of E single-segment episodes."""
+    """A batch of E single-segment episodes (waveforms ``[.., L]`` in
+    place of ``[.., F, T]`` for a wav store)."""
 
     support: torch.Tensor  # [E, S, F, T]
     support_labels: torch.Tensor  # [E, S]
@@ -55,16 +60,20 @@ def floyd_sample(gen: torch.Generator, count: torch.Tensor, k: int) -> torch.Ten
     return chosen.gather(-1, perm)
 
 
-def _pick_segments(gen: torch.Generator, store: PackedStore, items: torch.Tensor) -> torch.Tensor:
+def _pick_segments(
+    gen: torch.Generator, store: Union[PackedStore, PackedWavStore], items: torch.Tensor
+) -> torch.Tensor:
     counts = store.seg_counts[items]
     u = torch.rand(items.shape, generator=gen, device=items.device)
     seg = torch.minimum((u * counts.to(torch.float32)).floor().long(), counts - 1)
+    if isinstance(store, PackedWavStore):
+        return store.extract_segment(items, seg)
     return store.get_segment(items, seg)
 
 
 def sample_episode(
     gen: torch.Generator,
-    store: PackedStore,
+    store: Union[PackedStore, PackedWavStore],
     n_way: int,
     k_support: int,
     k_query: int,
@@ -90,3 +99,20 @@ def sample_episode(
         query=_pick_segments(gen, store, qry_items),
         query_labels=ways.repeat_interleave(k_query).expand(batch, -1),
     )
+
+
+def sample_wav_episode(
+    gen: torch.Generator,
+    store: PackedWavStore,
+    n_way: int,
+    k_support: int,
+    k_query: int,
+    batch: int = 1,
+    is_test: bool = False,
+) -> EpisodeBatch:
+    """E = ``batch`` wav episodes (support ``[E, S, seg_len]``, query
+    ``[E, Q, seg_len]`` raw waveforms; the mel comes downstream), drawn as
+    ``sample_episode`` draws, one random segment per item."""
+    if is_test and store.multi_segm:
+        raise NotImplementedError("multi-segment wav test episodes are a later slice of the port")
+    return sample_episode(gen, store, n_way, k_support, k_query, batch)

@@ -8,9 +8,15 @@ card) and scores the argmax, with no host synchronization until the
 accuracies of the whole run are read back. ``predict_episode`` runs the same
 pipeline on one caller-supplied episode.
 
+Wav-input configs (``input_type: "wav"``) sample raw waveforms from a
+``PackedWavStore`` instead; support and queries of the whole batch go
+through one online log-mel call (K3 on the card) and the store's global
+z-norm, and then through the same model. WaveAugment is off for them (a
+later slice), so every item has one view.
+
 The engine runs on the card unless the caller asks for the CPU, through
 ``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
-such request it raises. Training, multi-segment evaluation and wav input
+such request it raises. Training, multi-segment evaluation and WaveAugment
 come with later slices.
 """
 
@@ -22,10 +28,16 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
-from audio_few_shot_learning_tpu_torch.data.episodes import EpisodeBatch, sample_episode
+from audio_few_shot_learning_tpu_torch.config import HOP_LENGTH, N_MELS, ExperimentConfig, ModelConfig
+from audio_few_shot_learning_tpu_torch.data.episodes import (
+    EpisodeBatch,
+    sample_episode,
+    sample_wav_episode,
+)
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
+from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
+from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
 from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
 
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
@@ -52,28 +64,35 @@ class Trainer:
         self,
         exp: ExperimentConfig,
         mdl: ModelConfig,
-        train_store: PackedStore,
-        val_store: Optional[PackedStore] = None,
-        test_store: Optional[PackedStore] = None,
+        train_store: Union[PackedStore, PackedWavStore],
+        val_store: Union[PackedStore, PackedWavStore, None] = None,
+        test_store: Union[PackedStore, PackedWavStore, None] = None,
         seed: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
     ):
-        if exp.input_type == "wav":
-            raise NotImplementedError("wav input needs the mel kernel (K3), a later slice of the port")
+        self.is_wav = exp.input_type == "wav"
+        if self.is_wav and exp.waveaug_params.use:
+            raise NotImplementedError("WaveAugment (waveaug_params.use) is a later slice of the port")
         self.exp = exp
         self.mdl = mdl
         self.device = resolve_device(exp, device)
         self.train_store = train_store
         self.val_store = val_store
         self.test_store = test_store
-        self.specaug = exp.specaug_params.use
+        self.specaug = not self.is_wav and exp.specaug_params.use
         self.v_support = NUM_SPECAUG_VIEWS if self.specaug else 1
         self.eval_episode_batch = exp.tpu.eval_episode_batch
+        if self.is_wav:
+            # the reference's on-device torchaudio MelSpectrogram + 10*log10
+            self.mel = MelSpec(flavor="online")
+            feat_shape = (N_MELS, 1 + train_store.seg_len // HOP_LENGTH)
+        else:
+            feat_shape = tuple(train_store.feat_shape)
 
         seed = exp.tpu.seed if seed is None else seed
         with torch.random.fork_rng(devices=[]):  # seeded torch-default init
             torch.manual_seed(seed)
-            model = FewShotEpisodeModel(exp, mdl, tuple(train_store.feat_shape))
+            model = FewShotEpisodeModel(exp, mdl, feat_shape)
         self.model = model.to(self.device).eval()
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.last_eval_seconds: Optional[float] = None
@@ -98,6 +117,18 @@ class Trainer:
             return specs[:, :, None]
         return spec_augment_views(specs, gen, self.exp.specaug_params, draws=draws)
 
+    def _make_wav_views(
+        self, sup: torch.Tensor, qry: torch.Tensor, store: PackedWavStore
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Waveforms ``[E, S, L]``, ``[E, Q, L]`` -> views ``[E, S, 1, F, T]``,
+        ``[E, Q, 1, F, T]``: one online log-mel call over all ``E*(S+Q)``
+        rows, then the store's global z-norm (batch_creation.py:123-143)."""
+        e, s, length = sup.shape
+        mels = self.mel(torch.cat([sup, qry], dim=1).reshape(-1, length))  # [E*(S+Q), F, T]
+        mels = (mels - store.mean) / store.std
+        per_ep = mels.reshape(e, -1, 1, *mels.shape[-2:])
+        return per_ep[:, :s], per_ep[:, s:]
+
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
@@ -109,12 +140,17 @@ class Trainer:
         augment_query: bool,
         gen: torch.Generator,
         draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+        store: Optional[PackedWavStore] = None,
     ) -> torch.Tensor:
         """Scores ``[E, Q*, n_way]`` of an assembled episode batch;
-        ``draws = (support_draws, query_draws)`` fixes the augmentation."""
-        sup_draws, qry_draws = draws if draws is not None else (None, None)
-        sup_views = self._make_views(ep.support, self.specaug, gen, sup_draws)
-        qry_views = self._make_views(ep.query, self._v_query(augment_query) > 1, gen, qry_draws)
+        ``draws = (support_draws, query_draws)`` fixes the augmentation. A
+        wav batch is normalized with ``store``'s statistics."""
+        if self.is_wav:
+            sup_views, qry_views = self._make_wav_views(ep.support, ep.query, store)
+        else:
+            sup_draws, qry_draws = draws if draws is not None else (None, None)
+            sup_views = self._make_views(ep.support, self.specaug, gen, sup_draws)
+            qry_views = self._make_views(ep.query, self._v_query(augment_query) > 1, gen, qry_draws)
         return self.model(sup_views, qry_views, ep.support_labels, n_way).scores
 
     def _eval_episodes(
@@ -123,9 +159,10 @@ class Trainer:
         n_way: int,
         augment_query: bool,
         draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+        store: Optional[PackedWavStore] = None,
     ) -> torch.Tensor:
         """Accuracy per episode ``[E]`` (single segment)."""
-        scores = self._episode_scores(ep, n_way, augment_query, self.gen, draws)
+        scores = self._episode_scores(ep, n_way, augment_query, self.gen, draws, store)
         tile = 1 if self.exp.use_attention else self._v_query(augment_query)
         q_labels = ep.query_labels.repeat(1, tile)
         return (scores.argmax(dim=-1) == q_labels).to(torch.float32).mean(dim=-1)
@@ -133,7 +170,7 @@ class Trainer:
     @torch.inference_mode()
     def evaluate(
         self,
-        store: PackedStore,
+        store: Union[PackedStore, PackedWavStore],
         n_tasks: int,
         n_way: int,
         k_shot: int,
@@ -154,9 +191,10 @@ class Trainer:
         t0 = time.perf_counter()
         accs = []
         remaining = n_tasks
+        sampler = sample_wav_episode if self.is_wav else sample_episode
         while remaining > 0:
-            ep = sample_episode(self.gen, store, n_way, k_shot, k_query, batch)
-            accs.append(self._eval_episodes(ep, n_way, augment_query))
+            ep = sampler(self.gen, store, n_way, k_shot, k_query, batch)
+            accs.append(self._eval_episodes(ep, n_way, augment_query, store=store))
             remaining -= batch
         acc = torch.cat(accs)[:n_tasks].cpu().numpy()
         self.last_eval_seconds = time.perf_counter() - t0
@@ -189,8 +227,10 @@ class Trainer:
         """Classify fixed query items against a fixed support set: the
         serving entry point (``cli/predict.py``).
 
-        support ``[S, F, T]`` normalized spec features, support_labels ``[S]``
-        ints in ``[0, n_way)``, query ``[Q, F, T]``. Returns (pred ``[Q]``,
+        support ``[S, F, T]`` normalized spec features, or ``[S, L]`` raw
+        waveforms for a wav model (log-mel and the train store's z-norm on
+        the device, as in eval), support_labels ``[S]`` ints in
+        ``[0, n_way)``, query ``[Q, F, T]`` / ``[Q, L]``. Returns (pred ``[Q]``,
         scores ``[Q, n_way]`` f32). Support takes the training augmentation,
         queries follow ``test_query_augmentations``. ``generator`` (on this
         trainer's device) or ``draws = (support_draws, query_draws)``, each
@@ -209,7 +249,9 @@ class Trainer:
             query_labels=torch.zeros((1, qry.shape[1]), dtype=torch.long, device=self.device),
         )
         gen = generator or torch.Generator(device=self.device).manual_seed(0)
-        scores = self._episode_scores(ep, n_way, self.exp.test_query_augmentations, gen, draws)
+        scores = self._episode_scores(
+            ep, n_way, self.exp.test_query_augmentations, gen, draws, self.train_store
+        )
         # no-attention + augmented queries: Q*vq rows view-major; keep the
         # original-view block
         scores = scores[0, : qry.shape[1]].to(torch.float32).cpu()

@@ -8,27 +8,38 @@ Imports nothing of JAX or of the JAX package. In order it:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written kernels from ``audio_few_shot_learning_tpu_torch/
    csrc/`` with ``nvcc`` (one process per source, all at once) into
-   ``build/torch_kernels/``;
-3. kernel phase: holds K1 (SpecAugment 4-view emitter) and K2 (episode head)
-   against their plain PyTorch versions on the card at the eval path's
-   shapes, and times kernel, plain version and, where one exists, the one
-   PyTorch call computing the same function. Times are device times: 20
+   ``build/torch_kernels/``, and prints their registers and spills;
+3. kernel phase: holds K1 (SpecAugment 4-view emitter), K2 (episode head)
+   and K3 (mel filterbank + log, both flavours, at the wav eval batch, a
+   predict episode and ragged row counts) against their plain PyTorch
+   versions on the card, and times kernel, plain version and the PyTorch
+   library call(s) computing the same function. Times are device times: 20
    calls captured in one CUDA graph and replayed between CUDA events, so the
    host's cost of issuing a call is not in them;
-4. slice phase: on a seeded packed store of the benchmark's geometry (35
-   classes x 40 items x 128x157 f32) and the flagship model with seeded
+4. spec slice phase: on a seeded packed store of the benchmark's geometry
+   (35 classes x 40 items x 128x157 f32) and the flagship model with seeded
    weights (Hybrid, 64 channels, pool 3, RNN 64, attention 64/1/256, bf16),
    runs ``Trainer.test()`` over 64 single-segment tasks (4 eval batches of 16
    episodes) and one ``predict_episode``, with the kernels' launch counts set
    to 0 just before each and read just after; the launches per eval batch
-   and per prediction must be K1 2 (support, queries) and K2 1. Then it
-   times 4 more eval runs and 10 more predictions, and runs each once more
-   under ``torch.profiler``: device time by kernel and the device's busy
-   share of the wall time;
-5. card-vs-CPU phase: one float32 eval batch of 16 episodes with the same
-   weights and the same augmentation draws on the card (kernels) and on the
-   CPU (plain versions);
-6. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+   and per prediction must be K1 2 (support, queries), K2 1 and K3 0. Then
+   it times 4 more eval runs and 10 more predictions, and runs each once
+   more under ``torch.profiler``: device time by kernel and the device's
+   busy share of the wall time;
+5. spec card-vs-CPU phase: one float32 eval batch of 16 episodes with the
+   same weights and the same augmentation draws on the card (kernels) and on
+   the CPU (plain versions);
+6. wav slice phase: the same on a seeded packed waveform store (35 classes x
+   40 clips of 5 s at 16 kHz, 448 MB) and the flagship model with wav input
+   (online log-mel on the device, one view): launches per eval batch and per
+   prediction K3 1, K2 1, K1 0;
+7. wav card-vs-CPU phase: one float32 wav eval batch of 16 episodes, card
+   (K3, K2) against CPU (plain versions);
+8. raw-audio CLI phase: seeded ``.wav`` clips for a 5-way 5-shot support set
+   and 5 queries, the seeded flagship spec model saved as ``model.pt``, and
+   ``cli.predict.main`` in-process on the card (offline log-mel per clip,
+   then SpecAugment views and the head): launches K3 one per clip, K1 2, K2 1;
+9. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Any failure raises and exits non-zero. Exits non-zero without a result when
 no CUDA device is present.
@@ -36,11 +47,14 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,15 +63,20 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-N_MELS, N_FRAMES = 128, 157
+N_MELS, N_FRAMES, N_BINS = 128, 157, 513
+SR, CLIP = 16000, 80000  # 5-s clips: 1 + 80000 // 512 = 157 frames
 N_WAY, K_SHOT, K_QUERY = 5, 5, 5
 EVAL_BATCH = 16
 TEST_TASKS = 64
-EXPECTED_LAUNCHES = [2, 1]  # K1, K2 per eval batch and per prediction
+# launches of K1, K2, K3 per eval batch and per prediction
+SPEC_LAUNCHES = [2, 1, 0]
+WAV_LAUNCHES = [0, 1, 1]
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
 K1_TOL_F32 = 1e-5  # same separately rounded f32 ops as the plain version
 K2_ATOL, K2_RTOL = 1e-4, 1e-5  # another summation order than the plain matmul
+K3_ATOL_DB = 1e-3  # the same f32 products summed in another order, then log10
 SLICE_ATOL, SLICE_ARGMAX_AGREE = 1e-3, 0.99
+WAV_MEAN, WAV_STD = 20.0, 5.0  # roughly z-scores the online log-mel of the seeded clips
 
 
 def card_line() -> str:
@@ -97,7 +116,8 @@ def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> floa
 
 def profile(fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: wall time, the device's busy
-    time and share of it, device time and calls per kernel name."""
+    time and share of it, device time and calls per kernel name, and the
+    device time of the kernels each ATen op launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -107,12 +127,16 @@ def profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = {}
+    kernels, ops = {}, {}
     for evt in prof.key_averages():
         us = float(getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0))
-        if str(getattr(evt, "device_type", "")).endswith("CUDA") and us > 0:
-            t, n = kernels.get(evt.key, (0.0, 0))
-            kernels[evt.key] = (t + us, n + evt.count)
+        if us <= 0:
+            continue
+        # device-side entries are kernels and copies; host-side entries are
+        # the ATen ops that launched them (aten::sum, aten::_fft_r2c, ...)
+        table = kernels if str(getattr(evt, "device_type", "")).endswith("CUDA") else ops
+        t, n = table.get(evt.key, (0.0, 0))
+        table[evt.key] = (t + us, n + evt.count)
     busy = sum(t for t, _ in kernels.values())
     if busy == 0:
         raise AssertionError("the profiler saw no device time")
@@ -122,12 +146,16 @@ def profile(fn) -> dict:
         n = sum(v[1] for k, v in kernels.items() if name in k)
         return t / n if n else None
 
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(
         wall_us=wall_us, device_busy_us=busy, device_busy_share=busy / wall_us,
         k1_us_per_launch=per_launch_us("views_kernel"),
         k2_us_per_launch=per_launch_us("episode_scores_kernel"),
+        k3_us_per_launch=per_launch_us("mel_log_kernel"),
+        fft_us=sum(t for k, (t, _) in kernels.items() if "fft" in k.lower()),
         top_kernels_us_calls=[[k[:80], t, n] for k, (t, n) in top],
+        top_ops_device_us_calls=[[k[:80], t, n] for k, (t, n) in top_ops],
     )
 
 
@@ -202,6 +230,51 @@ def kernel_phase(dev):
         k2.append(dict(case=name, n_way=n_way, max_abs_err=err, tolerance=[K2_ATOL, K2_RTOL],
                        ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by))
     rows["K2"] = k2
+    rows["K3"] = k3_cases(dev, gen)
+    return rows
+
+
+def k3_cases(dev, gen):
+    """K3 against its plain version: the online flavour at the wav eval
+    batch (M = 16 x 50 x 157 = 125 600), the offline flavour at a predict
+    episode (M = 50 x 157 = 7 850), and ragged row counts (M = 157, M = 1).
+    Inputs are power spectrograms of seeded noise, as the path makes them."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.ops import mel
+
+    rows = []
+    for case, flavor, clips, length in (
+        ("eval", "online", EVAL_BATCH * N_WAY * (K_SHOT + K_QUERY), CLIP),
+        ("predict", "offline", N_WAY * (K_SHOT + K_QUERY), CLIP),
+        ("ragged M=157", "online", 1, CLIP),
+        ("ragged M=1", "offline", 1, 100),
+    ):
+        spec = mel.MelSpec(flavor)
+        wav = 0.3 * torch.randn((clips, length), generator=gen, device=dev)
+        pspec = mel.power_spectrogram(wav, pad_mode=spec.pad_mode)
+        fb = torch.from_numpy(spec.fb).to(dev)
+        bands = mel.band_table(spec.fb).to(dev)
+        args = (pspec, fb, spec.log_mult, spec.eps)
+        out = mel.mel_log_cuda(*args, bands)
+        ref = mel.mel_log_reference(*args).transpose(-1, -2)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= K3_ATOL_DB:
+            raise AssertionError(f"K3 {case} ({flavor}) disagrees with its plain version: {err} dB")
+        ms = graph_ms(lambda: mel.mel_log_cuda(*args, bands))
+        plain = graph_ms(lambda: mel.mel_log_reference(*args))
+        library = graph_ms(lambda: torch.log10(torch.matmul(pspec, fb)))
+        m = pspec.numel() // N_BINS
+        nnz = bands.weights.numel()
+        # the work this filterbank needs: one multiply-add per nonzero weight
+        b_ms, b_by = bound_ms(nbytes(pspec, fb, out), 2 * m * nnz)
+        rows.append(dict(
+            case=case, flavor=flavor, m=m, max_abs_err=err, tolerance=K3_ATOL_DB,
+            ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
+            bound_ms_dense_flops=2 * m * N_BINS * N_MELS / F32_FLOPS * 1e3,
+            filterbank_nonzeros=nnz,
+        ))
     return rows
 
 
@@ -217,29 +290,53 @@ def make_store(dev):
     )
 
 
-def flagship_exp(**tpu):
-    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+def make_wav_store(dev):
+    """35 classes x 40 clips of 5 s of seeded noise: 448 MB on the card."""
+    from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 
-    return ExperimentConfig.from_dict({
+    n_classes, per_class = 35, 40
+    rng = np.random.default_rng(0)
+    clips = 0.3 * rng.standard_normal((n_classes * per_class, CLIP), dtype=np.float32)
+    labels = np.repeat(np.arange(n_classes), per_class)
+    return PackedWavStore.pack(list(clips), labels, n_classes, mean=WAV_MEAN, std=WAV_STD, device=dev)
+
+
+def flagship_dict(input_type="spec", **tpu):
+    return {
         "encoder_name": "Hybrid", "use_attention": True, "use_contrastive": True,
-        "input_type": "spec", "n_testing_tasks": TEST_TASKS,
+        "input_type": input_type, "n_testing_tasks": TEST_TASKS,
         "specaug_params": {"use": True, "mask_param": 16, "W": 22, "num_mask": 1,
                            "mask_value": 0, "p": 0.282},
+        "waveaug_params": {"use": False},
         "test_query_augmentations": True,
         "tpu": {"eval_episode_batch": EVAL_BATCH, "compute_dtype": "bfloat16", **tpu},
-    })
+    }
 
 
-def slice_phase(dev, store):
-    """Trainer.test() and predict_episode on the flagship model, bf16."""
+def flagship_exp(input_type="spec", **tpu):
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig.from_dict(flagship_dict(input_type, **tpu))
+
+
+def kernel_counters():
+    from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
+
+    return (specaugment.views_cuda, protohead.episode_scores_cuda, mel.mel_log_cuda)
+
+
+def serve_phase(dev, store, input_type, expected):
+    """Trainer.test() and predict_episode on the flagship model, bf16, with
+    the launches of K1, K2, K3 per eval batch and per prediction asserted."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
-    from audio_few_shot_learning_tpu_torch.ops import protohead, specaugment
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels = (specaugment.views_cuda, protohead.episode_scores_cuda)
-    trainer = Trainer(flagship_exp(), ModelConfig(), store, test_store=store, device=dev, seed=0)
+    kernels = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(flagship_exp(input_type), ModelConfig(), store, test_store=store,
+                      device=dev, seed=0)
     trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans
 
     for k in kernels:
@@ -252,10 +349,10 @@ def slice_phase(dev, store):
         raise AssertionError(f"test accuracy out of range: {result}")
     n_batches = TEST_TASKS // EVAL_BATCH
     per_batch = [n / n_batches for n in eval_launches]
-    if per_batch != EXPECTED_LAUNCHES:
+    if per_batch != expected:
         raise AssertionError(
-            f"eval path launched K1, K2 {per_batch} times per batch ({eval_launches} in "
-            f"{n_batches} batches); expected {EXPECTED_LAUNCHES}"
+            f"{input_type} eval path launched K1, K2, K3 {per_batch} times per batch "
+            f"({eval_launches} in {n_batches} batches); expected {expected}"
         )
 
     def run_eval():
@@ -267,9 +364,12 @@ def slice_phase(dev, store):
     eval_profile = profile(run_eval)
 
     rng = np.random.default_rng(1)
-    items = rng.integers(0, store.num_items, 2 * N_WAY * K_SHOT)
-    segs = store.segments[torch.as_tensor(items, device=dev)].float().cpu().numpy()
-    support, query = segs[: N_WAY * K_SHOT], segs[N_WAY * K_SHOT :]
+    items = torch.as_tensor(rng.integers(0, store.num_items, 2 * N_WAY * K_SHOT), device=dev)
+    if input_type == "wav":
+        rows = store.extract_segment(items, torch.zeros_like(items)).cpu().numpy()  # [50, L]
+    else:
+        rows = store.segments[items].float().cpu().numpy()  # [50, F, T]
+    support, query = rows[: N_WAY * K_SHOT], rows[N_WAY * K_SHOT :]
     labels = np.repeat(np.arange(N_WAY), K_SHOT)
     trainer.predict_episode(support, labels, query)  # warm-up
     for k in kernels:
@@ -282,9 +382,10 @@ def slice_phase(dev, store):
         raise AssertionError(f"predict scores malformed: {scores.shape}")
     if pred.shape != (N_WAY * K_QUERY,) or pred.min() < 0 or pred.max() >= N_WAY:
         raise AssertionError(f"predictions malformed: {pred}")
-    if predict_launches != EXPECTED_LAUNCHES:
+    if predict_launches != expected:
         raise AssertionError(
-            f"predict path launched K1, K2 {predict_launches} times; expected {EXPECTED_LAUNCHES}"
+            f"{input_type} predict path launched K1, K2, K3 {predict_launches} times; "
+            f"expected {expected}"
         )
 
     def run_predict():
@@ -309,9 +410,9 @@ def slice_phase(dev, store):
     )
 
 
-def card_vs_cpu_phase(dev, store):
-    """One float32 eval batch (E=16, as the timed path), same weights and
-    draws, card vs CPU."""
+def card_vs_cpu_phase(dev, store, input_type):
+    """One float32 eval batch (E=16, as the timed path), same weights,
+    episodes and augmentation draws, card (kernels) vs CPU (plain versions)."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
@@ -320,27 +421,97 @@ def card_vs_cpu_phase(dev, store):
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
     e = EVAL_BATCH
-    exp = flagship_exp(compute_dtype="float32", eval_episode_batch=e)
+    exp = flagship_exp(input_type, compute_dtype="float32", eval_episode_batch=e)
     card = Trainer(exp, ModelConfig(), store, device=dev, seed=3)
-    cpu = Trainer(exp, ModelConfig(), store, device="cpu", seed=3)
+    cpu = Trainer(exp, ModelConfig(), store, device="cpu", seed=3)  # the store only gives shapes
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
 
     ep = sample_episode(torch.Generator(device=dev).manual_seed(5), store, N_WAY, K_SHOT, K_QUERY, e)
     ep_cpu = type(ep)(**{f.name: getattr(ep, f.name).cpu() for f in dataclasses.fields(ep)})
-    g = torch.Generator().manual_seed(6)
-    draws_cpu = tuple(
-        draw_views_params(g, exp.specaug_params, e, n, N_MELS, N_FRAMES, "cpu")
-        for n in (N_WAY * K_SHOT, N_WAY * K_QUERY)
-    )
-    draws_card = tuple(tuple(x.to(dev) for x in d) for d in draws_cpu)
+    draws_card = draws_cpu = None
+    if input_type == "spec":
+        g = torch.Generator().manual_seed(6)
+        draws_cpu = tuple(
+            draw_views_params(g, exp.specaug_params, e, n, N_MELS, N_FRAMES, "cpu")
+            for n in (N_WAY * K_SHOT, N_WAY * K_QUERY)
+        )
+        draws_card = tuple(tuple(x.to(dev) for x in d) for d in draws_cpu)
     with torch.inference_mode():
-        s_card = card._episode_scores(ep, N_WAY, True, card.gen, draws_card).cpu()
-        s_cpu = cpu._episode_scores(ep_cpu, N_WAY, True, cpu.gen, draws_cpu)
+        s_card = card._episode_scores(ep, N_WAY, True, card.gen, draws_card, store).cpu()
+        s_cpu = cpu._episode_scores(ep_cpu, N_WAY, True, cpu.gen, draws_cpu, store)
     err = (s_card - s_cpu).abs().max().item()
     agree = (s_card.argmax(-1) == s_cpu.argmax(-1)).float().mean().item()
     if not (err <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE):
-        raise AssertionError(f"card vs CPU: max err {err} (atol {SLICE_ATOL}), argmax agree {agree}")
+        raise AssertionError(
+            f"{input_type} card vs CPU: max err {err} (atol {SLICE_ATOL}), argmax agree {agree}"
+        )
     return dict(max_abs_err=err, atol=SLICE_ATOL, argmax_agree=agree, episodes=e)
+
+
+def cli_phase(dev):
+    """The raw-audio predict CLI in-process on the card: seeded .wav clips
+    (5 classes x 5 support, 5 queries), the seeded flagship spec model as
+    ``model.pt``, ``--norm-stats``; the JSON it writes is checked."""
+    import scipy.io.wavfile
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.cli import predict
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
+
+    rng = np.random.default_rng(7)
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        classes = [f"class{c}" for c in range(N_WAY)]
+        for c, name in enumerate(classes):
+            os.makedirs(os.path.join(tmp, "support", name))
+            for i in range(K_SHOT):
+                x = (0.3 * (1 + c) / N_WAY * rng.standard_normal(CLIP) * 32767).astype(np.int16)
+                scipy.io.wavfile.write(os.path.join(tmp, "support", name, f"{i}.wav"), SR, x)
+        os.makedirs(os.path.join(tmp, "query"))
+        for i in range(N_WAY):
+            x = (0.3 * rng.standard_normal(CLIP)).astype(np.float32)
+            scipy.io.wavfile.write(os.path.join(tmp, "query", f"q{i}.wav"), SR, x)
+        np.save(os.path.join(tmp, "stats.npy"), np.array([-10.0, 10.0], np.float32).reshape(2, 1, 1))
+        with open(os.path.join(tmp, "exp.json"), "w") as f:
+            json.dump(flagship_dict("spec"), f)
+        with open(os.path.join(tmp, "mdl.json"), "w") as f:
+            json.dump({}, f)
+        torch.manual_seed(0)
+        model = FewShotEpisodeModel(flagship_exp("spec"), ModelConfig(), (N_MELS, N_FRAMES))
+        torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
+
+        kernels = kernel_counters()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            predict.main([
+                "-e", os.path.join(tmp, "exp.json"), "-m", os.path.join(tmp, "mdl.json"),
+                "--checkpoint", os.path.join(tmp, "model.pt"),
+                "--support", os.path.join(tmp, "support"), "--query", os.path.join(tmp, "query"),
+                "--norm-stats", os.path.join(tmp, "stats.npy"),
+                "--output", os.path.join(tmp, "out.json"),
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+        with open(os.path.join(tmp, "out.json")) as f:
+            out = json.load(f)
+    preds = out["predictions"]
+    if out["classes"] != classes or out["n_way"] != N_WAY or len(preds) != N_WAY:
+        raise AssertionError(f"predict CLI output malformed: {out}")
+    for p in preds:
+        scores = list(p["scores"].values())
+        if (p["predicted_class"] not in classes or sorted(p["scores"]) != classes
+                or not all(np.isfinite(scores))):
+            raise AssertionError(f"predict CLI prediction malformed: {p}")
+    if not (launches[2] >= 1 and launches[:2] == [2, 1]):
+        raise AssertionError(f"raw-audio predict launched K1, K2, K3 {launches} times; "
+                             "expected 2, 1 and at least 1")
+    return dict(launches=launches, seconds=seconds, clips=N_WAY * K_SHOT + N_WAY,
+                predicted=[p["predicted_class"] for p in preds])
 
 
 def main() -> int:
@@ -358,7 +529,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["specaugment", "protohead"])
+    logs = cuda_build.build(["specaugment", "protohead", "mel"])
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs) or 'nothing (cached)'} from csrc/ with nvcc for sm_90a "
           f"in {build_s:.1f} s", flush=True)
@@ -373,34 +544,61 @@ def main() -> int:
     print("kernel phase: " + json.dumps(kern), flush=True)
 
     store = make_store(dev)
-    slc = slice_phase(dev, store)
-    print(f"slice phase ({card}): " + json.dumps(slc), flush=True)
+    slc = serve_phase(dev, store, "spec", SPEC_LAUNCHES)
+    print(f"spec slice phase ({card}): " + json.dumps(slc), flush=True)
 
     t0 = time.perf_counter()
-    cmp = card_vs_cpu_phase(dev, store)
+    cmp = card_vs_cpu_phase(dev, store, "spec")
     cmp["seconds"] = time.perf_counter() - t0
-    print("card vs CPU: " + json.dumps(cmp), flush=True)
+    print("spec card vs CPU: " + json.dumps(cmp), flush=True)
+    del store
 
-    k1_f32, k2_flag = kern["K1"][0], kern["K2"][0]
+    t0 = time.perf_counter()
+    wav_store = make_wav_store(dev)
+    print(f"wav store: {wav_store.nbytes() / 1e6:.1f} MB on the card, packed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wav = serve_phase(dev, wav_store, "wav", WAV_LAUNCHES)
+    print(f"wav slice phase ({card}): " + json.dumps(wav), flush=True)
+
+    t0 = time.perf_counter()
+    wav_cmp = card_vs_cpu_phase(dev, wav_store, "wav")
+    wav_cmp["seconds"] = time.perf_counter() - t0
+    print("wav card vs CPU: " + json.dumps(wav_cmp), flush=True)
+    del wav_store
+
+    cli = cli_phase(dev)
+    print("raw-audio CLI: " + json.dumps(cli), flush=True)
+
+    k1_f32, k2_flag, k3_eval = kern["K1"][0], kern["K2"][0], kern["K3"][0]
     common = [
         dict(name="specaugment_views",
              source="audio_few_shot_learning_tpu_torch/csrc/specaugment.cu",
              replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
-             library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
+             path=slc, library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
              extra=dict(bf16=kern["K1"][1])),
         dict(name="episode_scores",
              source="audio_few_shot_learning_tpu_torch/csrc/protohead.cu",
              replaces="audio_few_shot_learning_tpu/ops/protohead.py:136", row=k2_flag,
-             library_ms=k2_flag["library_ms"], in_eval_us=slc["eval_profile"]["k2_us_per_launch"],
-             extra=dict(ragged=kern["K2"][1])),
+             path=slc, library_ms=k2_flag["library_ms"],
+             in_eval_us=slc["eval_profile"]["k2_us_per_launch"],
+             extra=dict(ragged=kern["K2"][1], wav_path_launches=wav["eval_launches"][1])),
+        dict(name="mel_log",
+             source="audio_few_shot_learning_tpu_torch/csrc/mel.cu",
+             replaces="audio_few_shot_learning_tpu/ops/mel.py:179", row=k3_eval,
+             path=wav, library_ms=k3_eval["library_ms"],
+             in_eval_us=wav["eval_profile"]["k3_us_per_launch"],
+             extra=dict(library="torch.matmul + torch.log10 (two calls, without eps and log_mult)",
+                        bound_ms_dense_flops=k3_eval["bound_ms_dense_flops"],
+                        cases=kern["K3"][1:], cli_launches=cli["launches"][2])),
     ]
     kernels = []
     for i, k in enumerate(common):
-        r = k["row"]
+        r, path = k["row"], k["path"]
         kernels.append(dict(
             name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=slc["eval_launches"][i], launches_per_eval_batch=slc["eval_launches_per_batch"][i],
-            launches_predict=slc["predict_launches"][i], max_abs_err=r["max_abs_err"],
+            launches=path["eval_launches"][i],
+            launches_per_eval_batch=path["eval_launches_per_batch"][i],
+            launches_predict=path["predict_launches"][i], max_abs_err=r["max_abs_err"],
             tolerance=r["tolerance"], ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"], bound_by=r["bound_by"],
             library_ms=k["library_ms"], profiler_us_in_eval=k["in_eval_us"], **k["extra"],

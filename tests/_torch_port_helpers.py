@@ -30,7 +30,10 @@ SPECAUG = {"use": True, "mask_param": 16, "W": 6, "num_mask": 1, "mask_value": 0
 # name -> (feature shape, model config dict). "small" is the flagship's
 # structure at narrow widths (F' = 1 after four pool-3 stages); "fprime" has
 # F' = 3, T' = 4 (48x64, pool 2), where the (F', C) flatten order matters;
-# "gru_bi" is a two-layer bidirectional GRU at the same geometry.
+# "gru_bi" is a two-layer bidirectional GRU at the same geometry; "wav" is
+# the 128-mel log-mel of a 1-s clip (128x32) with pool 2, as
+# tests/test_wav_pipeline.py sizes its model (the flagship's pool 3 x 4 blocks
+# would leave no width).
 GEOMETRIES = {
     "small": (
         (96, 99),
@@ -53,6 +56,14 @@ GEOMETRIES = {
         {
             "Hybrid": {"pool_dim": [2, 2], "hidden_channels": 8, "seq_type": "GRU",
                        "seq_layers": 2, "bidirectional": True, "out_dim": 32},
+            "Attention": {"embed_dim": 32, "num_heads": 1, "ffn_dim": 32},
+            "Projection": {"input_dim": 128, "hidden_dim": 32, "output_dim": 64},
+        },
+    ),
+    "wav": (
+        (128, 32),
+        {
+            "Hybrid": {"pool_dim": [2, 2], "hidden_channels": 16, "seq_type": "RNN", "out_dim": 32},
             "Attention": {"embed_dim": 32, "num_heads": 1, "ffn_dim": 32},
             "Projection": {"input_dim": 128, "hidden_dim": 32, "output_dim": 64},
         },

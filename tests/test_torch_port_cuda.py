@@ -21,7 +21,8 @@ from audio_few_shot_learning_tpu_torch.config import (  # noqa: E402
     ExperimentConfig, ModelConfig, SpecAugParams,
 )
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore  # noqa: E402
-from audio_few_shot_learning_tpu_torch.ops import protohead, specaugment  # noqa: E402
+from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore  # noqa: E402
+from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment  # noqa: E402
 from audio_few_shot_learning_tpu_torch.train.engine import Trainer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +106,65 @@ def test_eval_path_launches_both_kernels(cuda):
     result = trainer.test()
     assert 0.0 <= result["mean_accuracy"] <= 1.0
     assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (4, 2)
+
+
+@pytest.mark.parametrize("flavor", ["online", "offline"])
+@pytest.mark.parametrize("lead,length", [
+    ((16 * 50,), 80000),  # the flagship eval batch: M = 125 600
+    ((50,), 80000),  # a predict episode
+    ((1,), 80000),  # one clip: M = 157, a ragged last tile
+    ((1,), 100),  # M = 1
+    ((), 33 * 512),  # a flat [M, K] input, M = 34
+    ((2, 3), 2000),  # two leading axes, 4 frames each
+])
+def test_mel_kernel_matches_plain(cuda, flavor, lead, length):
+    spec = mel.MelSpec(flavor)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    wav = 0.3 * torch.randn((*lead, length), generator=gen, device=cuda)
+    pspec = mel.power_spectrogram(wav, pad_mode=spec.pad_mode)
+    fb = torch.from_numpy(spec.fb).to(cuda)
+    before = mel.mel_log_cuda.launches
+    out = mel.mel_log_cuda(pspec, fb, spec.log_mult, spec.eps)
+    ref = mel.mel_log_reference(pspec, fb, spec.log_mult, spec.eps).transpose(-1, -2)
+    torch.cuda.synchronize()
+    assert mel.mel_log_cuda.launches == before + 1
+    assert out.shape == ref.shape == (*lead, 128, 1 + length // 512)
+    # the same f32 products summed in another order, then log10: 1e-3 dB
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+    torch.testing.assert_close(spec(wav), out, atol=0, rtol=0)  # MelSpec launches the same kernel
+
+
+def test_mel_kernel_band_ranges_and_input_checks(cuda):
+    spec = mel.MelSpec("online")
+    fb = torch.from_numpy(spec.fb).to(cuda)
+    lo, hi = mel.band_ranges(spec.fb)
+    with pytest.raises(ValueError, match="outside the band ranges"):
+        mel.band_table(fb, lo + 1, hi)
+    pspec = torch.rand((4, 157, 513), device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        mel.mel_log_cuda(pspec, fb, spec.log_mult, spec.eps, bands=mel.band_table(fb))  # on the CPU
+    with pytest.raises(TypeError, match="float32"):
+        mel.mel_log_cuda(pspec.double(), fb, spec.log_mult, spec.eps)
+    with pytest.raises(TypeError, match="float32"):
+        mel.mel_log_cuda(pspec.to(torch.bfloat16), fb, spec.log_mult, spec.eps)
+    with pytest.raises(ValueError, match="contiguous"):
+        mel.mel_log_cuda(pspec.transpose(0, 1), fb, spec.log_mult, spec.eps)
+
+
+def test_wav_eval_path_launches_mel_and_head_kernels(cuda):
+    rng = np.random.default_rng(5)
+    wavs = list((0.3 * rng.standard_normal((6 * 4, 16000))).astype(np.float32))
+    store = PackedWavStore.pack(wavs, np.repeat(np.arange(6), 4), mean=-20.0, std=15.0, device=cuda)
+    exp = ExperimentConfig.from_dict({
+        "input_type": "wav", "n_testing_tasks": 4,
+        "n_way_test": 3, "n_shot_test": 2, "n_query_test": 2,
+        "tpu": {"eval_episode_batch": 2},
+    })
+    mdl = ModelConfig.from_dict({"Hybrid": {"pool_dim": [2, 2], "hidden_channels": 8}})
+    trainer = Trainer(exp, mdl, store, test_store=store)
+    kernels = (mel.mel_log_cuda, protohead.episode_scores_cuda, specaugment.views_cuda)
+    for k in kernels:
+        k.launches = 0
+    result = trainer.test()
+    assert 0.0 <= result["mean_accuracy"] <= 1.0
+    assert tuple(k.launches for k in kernels) == (2, 2, 0)  # per batch: K3 1, K2 1, K1 0
