@@ -17,7 +17,9 @@ the filterbank projection and the log in one kernel: the plain version
 K3 uses the filterbank's shape: every triangular filter's nonzero bins form
 one contiguous range, 1-24 bins wide for the 128-band filterbanks (about
 1 000 nonzeros of 65 664), so the kernel sums each band over its own range
-(``BandTable``) instead of the dense product.
+(``BandTable``) instead of the dense product. It is bound by bytes: one
+persistent block per SM walks 32-row tiles that TMA bulk copies bring into
+a ring of shared-memory buffers (``mel_plan`` sizes the launch).
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ from audio_few_shot_learning_tpu_torch.ops import cuda_build
 
 _F64EPS = float(np.finfo(np.float64).eps)  # 2**-52, added in float32 like the JAX package
 _F32EPS = float(np.finfo(np.float32).eps)
-TILE_ROWS = 32  # spectrogram rows per block of K3 (csrc/mel.cu kRows)
+TILE_ROWS = 32  # spectrogram rows per tile of K3, one per lane (csrc/mel.cu kRows)
+MAX_STAGES = 3  # tile buffers in K3's ring (csrc/mel.cu kMaxStages)
+HEADER_BYTES = 128  # K3's mbarriers, ahead of the ring (csrc/mel.cu kHeaderBytes)
 SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
 
 
@@ -235,6 +239,49 @@ def band_table(fb, lo=None, hi=None) -> BandTable:
     )
 
 
+def mel_smem_bytes(k: int, n_mels: int, n_weights: int, stages: int, table_in_smem: bool) -> int:
+    """Shared memory of one K3 block (``csrc/mel.cu`` mel_smem_bytes): the
+    mbarriers, ``stages`` tiles of 32 x K f32 and, when staged, the band
+    table (weights padded to 16 bytes, then lo, length, offset)."""
+    n = HEADER_BYTES + stages * TILE_ROWS * k * 4
+    if table_in_smem:
+        n += 4 * (cuda_build.round_up(n_weights, 4) + 3 * n_mels)
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class MelPlan:
+    """K3's launch: ``grid`` persistent blocks, each with a ring of
+    ``stages`` tile buffers that TMA bulk copies of ``tile_bytes`` fill.
+    The first ``bulk_tiles`` tiles (every full tile when the base is 16-byte
+    aligned, else none) go through the ring; the rest, a ragged last tile or
+    all of them, are read by plain loads."""
+
+    grid: int
+    stages: int
+    table_in_smem: bool
+    smem_bytes: int
+    tile_bytes: int
+    bulk_tiles: int
+
+
+def mel_plan(m: int, k: int, n_mels: int, n_weights: int, sm_count: int, aligned: bool = True) -> MelPlan:
+    """The most stages (up to ``MAX_STAGES``) that fit ``SMEM_LIMIT``, with
+    the band table in shared memory when it fits beside at least two; one
+    block per SM (the ring takes most of an SM's shared memory)."""
+    for table, least in ((True, 2), (False, 1)):
+        for stages in range(MAX_STAGES, least - 1, -1):
+            smem = mel_smem_bytes(k, n_mels, n_weights, stages, table)
+            if smem <= SMEM_LIMIT:
+                return MelPlan(
+                    grid=max(1, min(cuda_build.cdiv(m, TILE_ROWS), sm_count)), stages=stages,
+                    table_in_smem=table, smem_bytes=smem, tile_bytes=4 * TILE_ROWS * k,
+                    bulk_tiles=m // TILE_ROWS if aligned else 0,
+                )
+    need = mel_smem_bytes(k, n_mels, n_weights, 1, False)
+    raise ValueError(f"{k} bins need {need} B of shared memory per block; K3 takes at most {SMEM_LIMIT} B")
+
+
 def mel_log_cuda(
     pspec: torch.Tensor,
     fb: torch.Tensor,
@@ -265,23 +312,25 @@ def mel_log_cuda(
         )
     if any(t.device != pspec.device for t in (bands.weights, bands.lo, bands.length, bands.offset)):
         raise ValueError("the band table must be on the power spectrogram's device")
-    smem = 4 * TILE_ROWS * k
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{k} bins need {smem} B of shared memory per block; K3 takes at most {SMEM_LIMIT} B")
     m = pspec.numel() // k
     if m >= 2**31:
         raise ValueError(f"{m} spectrogram rows exceed the kernel's int32 row count")
+    n_weights = bands.weights.numel()
+    sm_count = torch.cuda.get_device_properties(pspec.device).multi_processor_count
+    plan = mel_plan(m, k, bands.n_mels, n_weights, sm_count, pspec.data_ptr() % 16 == 0)
     out = torch.empty((*lead, bands.n_mels, t_len), device=pspec.device, dtype=torch.float32)
     if m == 0:
         return out
     fn = cuda_build.function(
         "mel", "afsl_mel_log",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
     )
     status = fn(
         cuda_build.ptr(pspec), cuda_build.ptr(bands.weights), cuda_build.ptr(bands.lo),
         cuda_build.ptr(bands.length), cuda_build.ptr(bands.offset), cuda_build.ptr(out),
         m, k, bands.n_mels, t_len, float(log_mult), float(eps),
+        n_weights, plan.stages, int(plan.table_in_smem), plan.grid, plan.bulk_tiles,
         cuda_build.stream_handle(pspec.device),
     )
     cuda_build.check_launch(status, "mel kernel")

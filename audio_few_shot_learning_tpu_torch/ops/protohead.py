@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``ops/protohead.py``. The plain PyTorch
 version (``compute_prototypes``, ``prototype_scores``,
 ``batched_episode_scores_reference``) is the one-hot matmul form; the fused
 kernel (``csrc/protohead.cu``, K2) runs the whole head for a batch of
-episodes in one launch. ``batched_episode_scores`` takes the plain version
+episodes in one launch, one block per episode and tile of queries, each
+block reading its inputs in one memory round (``head_plan`` sizes the
+launch). ``batched_episode_scores`` takes the plain version
 for CPU tensors and launches the kernel for CUDA tensors, through an
 ``autograd.Function`` whose backward is autograd through the plain version,
 as ``_fused_scores_bwd`` is in the JAX package.
@@ -16,12 +18,14 @@ queries ``[E, Q, D]`` -> scores ``[E, Q, n_way]`` = ``-||q - proto||``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from audio_few_shot_learning_tpu_torch.ops import cuda_build
 
-SMEM_LIMIT = 48 * 1024
+SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+Q_TILE = 8  # query rows per block of K2, one per warp (csrc/protohead.cu kWarps)
 
 
 def _onehot(labels: torch.Tensor, n_way: int, dtype: torch.dtype) -> torch.Tensor:
@@ -58,10 +62,66 @@ def batched_episode_scores_reference(
     return prototype_scores(queries, compute_prototypes(support, support_labels, n_way))
 
 
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def head_smem_bytes(n_way: int, d: int, q_tile: int, s_chunk: int) -> int:
+    """Shared memory of one K2 block (``csrc/protohead.cu`` head_smem_bytes):
+    prototypes [N, D], query tile [q_tile, D], support chunk [s_chunk, D] and
+    class counts [N] in f32, each padded to 16 bytes, then s_chunk int32 labels."""
+    return 4 * (_round4(n_way * d) + _round4(q_tile * d) + _round4(s_chunk * d) + _round4(n_way) + s_chunk)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """K2's launch: one block per episode and tile of ``q_tile`` query rows,
+    the support staged ``s_chunk`` rows at a time (all of it when it fits)."""
+
+    q_tile: int
+    s_chunk: int
+    smem_bytes: int
+    blocks: int
+
+
+def head_plan(n_episodes: int, n_support: int, n_query: int, d: int, n_way: int) -> HeadPlan:
+    """The largest query tile (up to ``Q_TILE``) and support chunk (up to S)
+    whose shared memory fits ``SMEM_LIMIT``; raises ValueError when not even
+    one query row and one support row fit beside the prototypes."""
+    for q_tile in dict.fromkeys((max(1, min(Q_TILE, n_query)), 1)):
+        room = SMEM_LIMIT - head_smem_bytes(n_way, d, q_tile, 0)
+        s_chunk = min(n_support, max(0, room - 12) // (4 * (d + 1)))
+        while s_chunk > 0 and head_smem_bytes(n_way, d, q_tile, s_chunk) > SMEM_LIMIT:
+            s_chunk -= 1
+        smem = head_smem_bytes(n_way, d, q_tile, s_chunk)
+        if smem <= SMEM_LIMIT and (s_chunk > 0 or n_support == 0):
+            return HeadPlan(q_tile, s_chunk, smem, n_episodes * cuda_build.cdiv(n_query, q_tile))
+    need = head_smem_bytes(n_way, d, 1, min(n_support, 1))
+    raise ValueError(
+        f"n_way={n_way} x D={d} prototypes need {need} B of shared memory with one query "
+        f"and one support row; the episode head kernel takes at most {SMEM_LIMIT} B"
+    )
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x [E, R, D]`` as float32 whose rows are contiguous within an episode
+    (any episode stride): ``x`` itself when it is one, else a copy."""
+    x = x.detach().to(torch.float32)
+    _, r, d = x.shape
+    if (d > 1 and x.stride(2) != 1) or (r > 1 and x.stride(1) != d):
+        x = x.contiguous()
+    return x
+
+
 def episode_scores_cuda(
     support: torch.Tensor, support_labels: torch.Tensor, queries: torch.Tensor, n_way: int
 ) -> torch.Tensor:
-    """Launch K2 on CUDA tensors; counts the launch in ``episode_scores_cuda.launches``."""
+    """Launch K2 on CUDA tensors; counts the launch in ``episode_scores_cuda.launches``.
+
+    Float32 features whose rows are contiguous within an episode (slices of
+    a larger batch included) and int32 or int64 labels at any strides
+    (expanded over episodes included) go to the kernel as they are: the
+    call launches K2 and nothing else."""
     if not (support.is_cuda and queries.is_cuda and support_labels.is_cuda):
         raise ValueError("episode_scores_cuda needs CUDA tensors")
     if support.dim() != 3 or queries.dim() != 3 or support_labels.dim() != 2:
@@ -73,27 +133,23 @@ def episode_scores_cuda(
     q = queries.shape[1]
     if queries.shape[0] != e or queries.shape[2] != d or tuple(support_labels.shape) != (e, s):
         raise ValueError("support, labels and queries disagree on E, S or D")
-    # one block's shared memory: prototypes, their norms and class counts
-    # (f32) and the labels (int32); the C entry point refuses more than 48 KB
-    smem = 4 * (n_way * d + 2 * n_way + s)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"n_way={n_way} x D={d} prototypes need {smem} B of shared memory; the "
-            f"episode head kernel takes at most {SMEM_LIMIT} B (n_way <= "
-            f"{(SMEM_LIMIT - 4 * s) // (4 * d + 8)} at D={d})"
-        )
-    sup = support.detach().to(torch.float32).contiguous()
-    qry = queries.detach().to(torch.float32).contiguous()
-    lab = support_labels.to(torch.int32).contiguous()
+    plan = head_plan(e, s, q, d, n_way)
+    sup, qry = _rows(support), _rows(queries)
+    lab = support_labels
+    if lab.dtype not in (torch.int32, torch.int64):
+        lab = lab.to(torch.int64)
     out = torch.empty((e, q, n_way), device=support.device, dtype=torch.float32)
     fn = cuda_build.function(
         "protohead",
         "afsl_protohead_scores",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     status = fn(
-        cuda_build.ptr(sup), cuda_build.ptr(lab), cuda_build.ptr(qry), cuda_build.ptr(out),
-        e, s, q, d, n_way, cuda_build.stream_handle(support.device),
+        cuda_build.ptr(sup), sup.stride(0), cuda_build.ptr(lab), lab.element_size(),
+        lab.stride(0), lab.stride(1), cuda_build.ptr(qry), qry.stride(0), cuda_build.ptr(out),
+        e, s, q, d, n_way, plan.q_tile, plan.s_chunk, cuda_build.stream_handle(support.device),
     )
     cuda_build.check_launch(status, "protohead kernel")
     episode_scores_cuda.launches += 1

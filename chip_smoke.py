@@ -9,13 +9,16 @@ Imports nothing of JAX or of the JAX package. In order it:
 2. builds the hand-written kernels from ``audio_few_shot_learning_tpu_torch/
    csrc/`` with ``nvcc`` (one process per source, all at once) into
    ``build/torch_kernels/``, and prints their registers and spills;
-3. kernel phase: holds K1 (SpecAugment 4-view emitter), K2 (episode head)
-   and K3 (mel filterbank + log, both flavours, at the wav eval batch, a
-   predict episode and ragged row counts) against their plain PyTorch
-   versions on the card, and times kernel, plain version and the PyTorch
-   library call(s) computing the same function. Times are device times: 20
-   calls captured in one CUDA graph and replayed between CUDA events, so the
-   host's cost of issuing a call is not in them;
+3. kernel phase: times the launch floor (one trivial kernel), then holds K1
+   (SpecAugment 4-view emitter), K2 (episode head, at the spec and wav eval
+   batches, a predict episode and a ragged case, on inputs as the path gives
+   them, asserting that one call runs K2 and nothing else on the device) and
+   K3 (mel filterbank + log, both flavours, at the wav eval batch, a predict
+   episode, ragged row counts and bases that are not 16-byte aligned)
+   against their plain PyTorch versions on the card, and times kernel, plain
+   version and the PyTorch library call(s) computing the same function.
+   Times are device times: 20 calls captured in one CUDA graph and replayed
+   between CUDA events, so the host's cost of issuing a call is not in them;
 4. spec slice phase: on a seeded packed store of the benchmark's geometry
    (35 classes x 40 items x 128x157 f32) and the flagship model with seeded
    weights (Hybrid, 64 channels, pool 3, RNN 64, attention 64/1/256, bf16),
@@ -159,6 +162,33 @@ def profile(fn) -> dict:
     )
 
 
+def device_kernels(fn) -> list:
+    """Names of the device activities (kernels, copies, fills) that one call
+    of ``fn`` runs, under ``torch.profiler``, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = []
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            names += [evt.key] * evt.count
+    return names
+
+
+def launch_floor_ms(dev) -> float:
+    """Graph-replay time of one trivial kernel (``zero_()`` on a one-element
+    tensor): what any launch costs on this card, the floor for K2."""
+    import torch
+
+    x = torch.ones(1, device=dev)
+    return graph_ms(lambda: x.zero_())
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -169,7 +199,8 @@ def nbytes(*tensors) -> int:
 
 
 def kernel_phase(dev):
-    """K1 and K2 against their plain versions at the eval path's shapes."""
+    """The launch floor, then K1, K2 and K3 against their plain versions at
+    the main path's shapes."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import SpecAugParams
@@ -177,7 +208,7 @@ def kernel_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     params = SpecAugParams(use=True, mask_param=16, W=22, num_mask=1, mask_value=0.0, p=0.282)
-    rows = {}
+    rows = {"launch_floor_ms": launch_floor_ms(dev)}
 
     # K1: one launch per view call; the eval batch makes E=16 episodes x 25 items
     k1 = []
@@ -204,55 +235,95 @@ def kernel_phase(dev):
                        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
     rows["K1"] = k1
 
-    # K2: one launch per eval batch; flagship E=16, S=Q=25, D=V*64=256, N=5,
-    # plus a ragged case (N=7, uneven classes, one empty class)
+    # K2: one launch per eval batch, on the inputs as the path gives them:
+    # support and queries are slices of the attention output [E, S+Q, D],
+    # labels int64 expanded over the episodes (stride 0). Flagship spec E=16,
+    # S=Q=25, D=V*64=256, N=5; the wav path's D=64 (one view); a predict
+    # episode (E=1); a ragged case (N=7, uneven classes, one empty class).
     k2 = []
-    for name, n_way, labels_np in (
-        ("flagship", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT)),
-        ("ragged", 7, np.array([0] * 9 + [1] * 2 + [2] * 5 + [3] * 1 + [4] * 4 + [5] * 4)),
+    for name, n_way, labels_np, e, d in (
+        ("flagship", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT), EVAL_BATCH, 4 * 64),
+        ("wav", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT), EVAL_BATCH, 64),
+        ("predict", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT), 1, 4 * 64),
+        ("ragged", 7, np.array([0] * 9 + [1] * 2 + [2] * 5 + [3] * 1 + [4] * 4 + [5] * 4),
+         EVAL_BATCH, 4 * 64),
     ):
-        e, s, q, d = EVAL_BATCH, len(labels_np), N_WAY * K_QUERY, 4 * 64
-        sup = torch.randn((e, s, d), generator=gen, device=dev)
-        qry = torch.randn((e, q, d), generator=gen, device=dev)
-        lab = torch.as_tensor(labels_np, device=dev).expand(e, -1).contiguous()
+        s, q = len(labels_np), N_WAY * K_QUERY
+        fused = torch.randn((e, s + q, d), generator=gen, device=dev)
+        sup, qry = fused[:, :s], fused[:, s:]
+        lab = torch.as_tensor(labels_np, device=dev).expand(e, -1)
         out = protohead.episode_scores_cuda(sup, lab, qry, n_way)
         ref = protohead.batched_episode_scores_reference(sup, lab, qry, n_way)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if not torch.allclose(out, ref, atol=K2_ATOL, rtol=K2_RTOL):
             raise AssertionError(f"K2 {name} disagrees with its plain version: max err {err}")
+        # the wrapper launches K2 and nothing else: no label cast, no feature copy
+        device_ops = device_kernels(lambda: protohead.episode_scores_cuda(sup, lab, qry, n_way))
+        if len(device_ops) != 1 or "episode_scores_kernel" not in device_ops[0]:
+            raise AssertionError(f"K2 {name}: one call ran {device_ops} on the device")
         ms = graph_ms(lambda: protohead.episode_scores_cuda(sup, lab, qry, n_way))
         plain = graph_ms(lambda: protohead.batched_episode_scores_reference(sup, lab, qry, n_way))
         protos = protohead.compute_prototypes(sup, lab, n_way)
         library = graph_ms(lambda: torch.cdist(qry, protos))
         flops = e * (s * d + q * n_way * 2 * d + q * 2 * d + n_way * 3 * d)
-        b_ms, b_by = bound_ms(nbytes(sup, qry, lab.to(torch.int32), out), flops)
-        k2.append(dict(case=name, n_way=n_way, max_abs_err=err, tolerance=[K2_ATOL, K2_RTOL],
-                       ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by))
+        # labels: the S distinct int64 values the expanded tensor holds
+        b_ms, b_by = bound_ms(nbytes(sup, qry, out) + lab.untyped_storage().nbytes(), flops)
+        k2.append(dict(case=name, e=e, d=d, n_way=n_way, max_abs_err=err,
+                       tolerance=[K2_ATOL, K2_RTOL], device_ops_per_call=device_ops, ms=ms,
+                       plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by))
     rows["K2"] = k2
     rows["K3"] = k3_cases(dev, gen)
     return rows
 
 
+def unaligned_copy(x):
+    """A contiguous copy of ``x [..., K]`` f32 whose base is 4 bytes past a
+    16-byte boundary: rows 1: of a flat [M + 1, K] buffer (K = 513 makes
+    each row 2 052 bytes, 4 mod 16)."""
+    import torch
+
+    k = x.shape[-1]
+    flat = torch.empty((x.numel() // k + 1, k), device=x.device, dtype=x.dtype)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    if out.data_ptr() % 16 == 0 or not out.is_contiguous():
+        raise AssertionError("unaligned_copy made an aligned or strided tensor")
+    return out
+
+
 def k3_cases(dev, gen):
     """K3 against its plain version: the online flavour at the wav eval
     batch (M = 16 x 50 x 157 = 125 600), the offline flavour at a predict
-    episode (M = 50 x 157 = 7 850), and ragged row counts (M = 157, M = 1).
-    Inputs are power spectrograms of seeded noise, as the path makes them."""
+    episode (M = 50 x 157 = 7 850), ragged row counts (M = 157, M = 1, and
+    M = 33, 35, 63, which leave 1, 3 and 31 rows in the last tile), and
+    inputs whose base is not 16-byte aligned (plain loads instead of the
+    bulk copies). Inputs are power spectrograms of seeded noise, as the path
+    makes them."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.ops import mel
 
     rows = []
-    for case, flavor, clips, length in (
-        ("eval", "online", EVAL_BATCH * N_WAY * (K_SHOT + K_QUERY), CLIP),
-        ("predict", "offline", N_WAY * (K_SHOT + K_QUERY), CLIP),
-        ("ragged M=157", "online", 1, CLIP),
-        ("ragged M=1", "offline", 1, 100),
+    hop = 512
+    for case, flavor, clips, length, aligned in (
+        ("eval", "online", EVAL_BATCH * N_WAY * (K_SHOT + K_QUERY), CLIP, True),
+        ("predict", "offline", N_WAY * (K_SHOT + K_QUERY), CLIP, True),
+        ("ragged M=157", "online", 1, CLIP, True),
+        ("ragged M=1", "offline", 1, 100, True),
+        ("ragged M=33", "online", 1, 32 * hop, True),
+        ("ragged M=35", "offline", 1, 34 * hop, True),
+        ("ragged M=63", "online", 1, 62 * hop, True),
+        ("unaligned M=33", "online", 1, 32 * hop, False),
+        ("unaligned M=35", "offline", 1, 34 * hop, False),
+        ("unaligned M=63", "online", 1, 62 * hop, False),
+        ("unaligned predict", "offline", N_WAY * (K_SHOT + K_QUERY), CLIP, False),
     ):
         spec = mel.MelSpec(flavor)
         wav = 0.3 * torch.randn((clips, length), generator=gen, device=dev)
         pspec = mel.power_spectrogram(wav, pad_mode=spec.pad_mode)
+        if not aligned:
+            pspec = unaligned_copy(pspec)
         fb = torch.from_numpy(spec.fb).to(dev)
         bands = mel.band_table(spec.fb).to(dev)
         args = (pspec, fb, spec.log_mult, spec.eps)
@@ -270,8 +341,9 @@ def k3_cases(dev, gen):
         # the work this filterbank needs: one multiply-add per nonzero weight
         b_ms, b_by = bound_ms(nbytes(pspec, fb, out), 2 * m * nnz)
         rows.append(dict(
-            case=case, flavor=flavor, m=m, max_abs_err=err, tolerance=K3_ATOL_DB,
-            ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by,
+            case=case, flavor=flavor, m=m, base_16b_aligned=aligned, max_abs_err=err,
+            tolerance=K3_ATOL_DB, ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms,
+            bound_by=b_by, share_of_bound=b_ms / ms,
             bound_ms_dense_flops=2 * m * N_BINS * N_MELS / F32_FLOPS * 1e3,
             filterbank_nonzeros=nnz,
         ))
@@ -581,7 +653,9 @@ def main() -> int:
              replaces="audio_few_shot_learning_tpu/ops/protohead.py:136", row=k2_flag,
              path=slc, library_ms=k2_flag["library_ms"],
              in_eval_us=slc["eval_profile"]["k2_us_per_launch"],
-             extra=dict(ragged=kern["K2"][1], wav_path_launches=wav["eval_launches"][1])),
+             extra=dict(library="torch.cdist on precomputed prototypes",
+                        device_ops_per_call=k2_flag["device_ops_per_call"],
+                        cases=kern["K2"][1:], wav_path_launches=wav["eval_launches"][1])),
         dict(name="mel_log",
              source="audio_few_shot_learning_tpu_torch/csrc/mel.cu",
              replaces="audio_few_shot_learning_tpu/ops/mel.py:179", row=k3_eval,
@@ -601,7 +675,8 @@ def main() -> int:
             launches_predict=path["predict_launches"][i], max_abs_err=r["max_abs_err"],
             tolerance=r["tolerance"], ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=k["library_ms"], profiler_us_in_eval=k["in_eval_us"], **k["extra"],
+            library_ms=k["library_ms"], launch_floor_ms=kern["launch_floor_ms"],
+            profiler_us_in_eval=k["in_eval_us"], **k["extra"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

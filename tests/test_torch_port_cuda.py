@@ -72,10 +72,49 @@ def test_protohead_kernel_matches_plain(cuda, n_way, labels):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("e,d", [(16, 64), (1, 256), (1, 64)])  # wav eval batch, predict
+def test_protohead_kernel_matches_plain_at_path_shapes(cuda, e, d):
+    """Inputs as the eval path gives them: support and queries slices of the
+    attention output [E, S+Q, D], int64 labels expanded over episodes."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    s = q = 25
+    fused = torch.randn((e, s + q, d), generator=gen, device=cuda)
+    sup, qry = fused[:, :s], fused[:, s:]
+    lab = torch.arange(5, device=cuda).repeat_interleave(5).expand(e, -1)
+    out = protohead.episode_scores_cuda(sup, lab, qry, 5)
+    ref = protohead.batched_episode_scores_reference(sup, lab, qry, 5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_protohead_call_launches_one_kernel(cuda, label_dtype):
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    fused = torch.randn((16, 50, 256), generator=gen, device=cuda)
+    sup, qry = fused[:, :25], fused[:, 25:]
+    lab = torch.arange(5, device=cuda, dtype=label_dtype).repeat_interleave(5).expand(16, -1)
+    protohead.episode_scores_cuda(sup, lab, qry, 5)  # build and load first
+    torch.cuda.synchronize()
+    before = protohead.episode_scores_cuda.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        protohead.episode_scores_cuda(sup, lab, qry, 5)
+        torch.cuda.synchronize()
+    device = [
+        (evt.key, evt.count) for evt in prof.key_averages()
+        if str(evt.device_type).endswith("CUDA")
+    ]
+    assert len(device) == 1 and device[0][1] == 1, device
+    assert "episode_scores_kernel" in device[0][0]
+    assert protohead.episode_scores_cuda.launches == before + 1
+
+
 def test_protohead_kernel_refuses_too_many_classes(cuda):
+    # 240 prototypes of D=256 alone take 240 KB, beyond the 227 KB a block may use
     sup = torch.zeros((1, 4, 256), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        protohead.episode_scores_cuda(sup, torch.zeros((1, 4), device=cuda, dtype=torch.long), sup, 60)
+        protohead.episode_scores_cuda(sup, torch.zeros((1, 4), device=cuda, dtype=torch.long), sup, 240)
 
 
 def test_fused_scores_backward_on_card(cuda):
@@ -132,6 +171,38 @@ def test_mel_kernel_matches_plain(cuda, flavor, lead, length):
     # the same f32 products summed in another order, then log10: 1e-3 dB
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
     torch.testing.assert_close(spec(wav), out, atol=0, rtol=0)  # MelSpec launches the same kernel
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("m", [33, 35, 63, 7850])  # last tile of 1, 3, 31 and 10 rows
+def test_mel_kernel_ragged_tail_and_unaligned_base(cuda, m, aligned):
+    spec = mel.MelSpec("offline")
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    rows = mel.power_spectrogram(0.3 * torch.randn((m - 1) * 512, generator=gen, device=cuda))
+    assert rows.shape == (m, 513)
+    # rows 1: of a flat [M + 1, 513] buffer: contiguous, base 2 052 bytes (4 mod 16) in
+    flat = torch.empty((m + 1, 513), device=cuda)
+    pspec = flat[1:] if not aligned else flat[:m]
+    pspec.copy_(rows)
+    assert pspec.is_contiguous() and (pspec.data_ptr() % 16 == 0) == aligned
+    fb = torch.from_numpy(spec.fb).to(cuda)
+    out = mel.mel_log_cuda(pspec, fb, spec.log_mult, spec.eps)
+    ref = mel.mel_log_reference(pspec, fb, spec.log_mult, spec.eps).transpose(-1, -2)
+    torch.cuda.synchronize()
+    assert out.shape == (128, m)
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+
+
+def test_melspec_launches_mel_kernel_once_per_call(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    wav = 0.3 * torch.randn((2, 50, 80000), generator=gen, device=cuda)
+    for flavor in ("online", "offline"):
+        spec = mel.MelSpec(flavor)
+        before = mel.mel_log_cuda.launches
+        out = spec(wav)
+        torch.cuda.synchronize()
+        assert mel.mel_log_cuda.launches == before + 1
+        assert out.shape == (2, 50, 128, 157) and torch.isfinite(out).all()
 
 
 def test_mel_kernel_band_ranges_and_input_checks(cuda):
