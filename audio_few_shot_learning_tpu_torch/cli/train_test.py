@@ -1,0 +1,51 @@
+"""Training/testing CLI, the reference entry point's counterpart:
+
+    python -m audio_few_shot_learning_tpu_torch.cli.train_test \\
+        -e experiment_config.json -m model_config.json
+
+Reads the reference's two JSON schemas, as the JAX package's CLI does. It
+runs on the card unless the experiment config says ``"device": "cpu"``.
+Beyond the reference: ``--data-root`` (the reference hardcodes ``/data``),
+``--experiments-root``, ``--runs`` (the reference hardcodes 5) and
+``--resume`` (continue interrupted runs from their resume checkpoints).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument(
+        "-e", "--experiment_config", help="Path to Experiment configuration file.", required=True
+    )
+    parser.add_argument("-m", "--model_config", help="Path to model_params file", required=True)
+    parser.add_argument("--data-root", default=None, help="Dataset root (default: config/data_root)")
+    parser.add_argument("--experiments-root", default="experiments")
+    parser.add_argument("--runs", type=int, default=None, help="Override number of repeated runs")
+    parser.add_argument("--resume", action="store_true", help="Resume interrupted runs")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from audio_few_shot_learning_tpu_torch.config import load_configs
+    from audio_few_shot_learning_tpu_torch.train.experiment import run_experiment
+
+    exp, mdl = load_configs(args.experiment_config, args.model_config)
+    if args.data_root:
+        exp = dataclasses.replace(exp, data_root=args.data_root)
+    return run_experiment(
+        exp,
+        mdl,
+        experiments_root=args.experiments_root,
+        resume=args.resume,
+        num_runs=args.runs,
+    )
+
+
+if __name__ == "__main__":
+    main()

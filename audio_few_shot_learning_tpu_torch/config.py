@@ -12,12 +12,13 @@ under optional keys so reference configs run unmodified.
 
 This is the PyTorch package's own copy of the JAX package's schema: same
 keys, same defaults, pure Python. The ``tpu.*`` block is parsed unchanged so
-one JSON file drives both packages; here ``compute_dtype``,
-``eval_episode_batch``, ``store_dtype``, ``fold_bn_eval`` and ``seed`` take
-effect, while the keys that name TPU machinery (``use_pallas``,
-``mesh_shape``, ``remat``, ``eval_segment_budget``, ``host_store``) are
-accepted and inert. ``device`` selects the card (anything but ``"cpu"``) or
-the CPU.
+one JSON file drives both packages; here ``episode_batch``,
+``episode_microbatch``, ``eval_episode_batch``, ``compute_dtype``, ``remat``,
+``store_dtype``, ``fold_bn_eval``, ``seed`` and ``num_runs`` take effect,
+``host_store: true`` and ``bn_per_view_group: true`` raise (later slices),
+and the keys that name TPU machinery (``use_pallas``, ``mesh_shape``,
+``eval_segment_budget``) are accepted and inert. ``device`` selects the card
+(anything but ``"cpu"``) or the CPU.
 """
 
 from __future__ import annotations

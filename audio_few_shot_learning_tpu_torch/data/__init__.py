@@ -1,1 +1,2 @@
-"""Device-resident packed store and the episodic sampler."""
+"""Device-resident packed stores, the episodic sampler and the
+reference-layout dataset loader."""

@@ -11,10 +11,18 @@ Counterpart of the JAX package's ``models/encoders.py`` in NCHW:
   connection -> last timestep -> Dropout(0.3) -> BatchNorm1d -> Linear, the
   head in float32.
 
-Convolutions run in ``compute_dtype``; the BatchNorm affine is applied in
-that dtype from float32 running statistics (``BandwidthBatchNorm``), or
-folded into the conv weights on eval paths (``fold_bn_eval``). This slice
-serves: the modules implement eval mode only.
+Convolutions run in ``compute_dtype``. In train mode the conv blocks'
+BatchNorm normalizes with float32 batch statistics (biased variance) and
+moves its running statistics by momentum 0.1 towards the batch mean and the
+unbiased variance (``BandwidthBatchNorm``); the head's BatchNorm1d follows
+flax's ``nn.BatchNorm``, which puts the biased variance into its running
+statistics (``HeadBatchNorm``). In eval mode both apply the running
+statistics, the conv blocks' folded into the conv weights when
+``fold_bn_eval`` is set. With ``remat`` each conv block is recomputed in the
+backward pass (``torch.utils.checkpoint``) instead of holding its
+full-resolution activations; the recompute leaves the running statistics
+alone, so they move once per forward, as in the JAX package. Dropout draws
+from the generator the caller passes down (``models/dropout.py``).
 
 Module names follow the reference checkpoint (``backbone.encoder.
 conv_encoder.{i}.{0,1}``, ``backbone.encoder.seq_layers``,
@@ -24,13 +32,15 @@ conv_encoder.{i}.{0,1}``, ``backbone.encoder.seq_layers``,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from audio_few_shot_learning_tpu_torch.config import CNNConfig, HybridConfig
+from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
 from audio_few_shot_learning_tpu_torch.ops.rnn import Recurrent
 
 NUM_BLOCKS = 4
@@ -44,43 +54,81 @@ def torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} implements eval mode only; call .eval() "
-            "(training comes with the training slice)"
-        )
-
-
 class BandwidthBatchNorm(nn.BatchNorm2d):
-    """Eval BatchNorm as ``x * inv + shift`` with ``inv`` and ``shift``
-    computed in float32 from the running statistics and applied in the
-    activation's dtype (torch eps 1e-5)."""
+    """BatchNorm of the conv blocks (momentum 0.1, eps 1e-5).
+
+    Train: float32 batch statistics, the biased variance to normalize and
+    the unbiased one into the running variance; ``update_stats=False``
+    normalizes the same way and leaves the running statistics and
+    ``num_batches_tracked`` alone (the recompute of a rematerialized block).
+    Eval: ``x * inv + shift`` with ``inv`` and ``shift`` computed in float32
+    from the running statistics and applied in the activation's dtype."""
 
     def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-channel float32 ``(inv, shift)`` of the eval affine."""
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         return inv, self.bias - self.running_mean * inv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        if self.training:
+            running = (self.running_mean, self.running_var)
+            if update_stats:
+                self.num_batches_tracked.add_(1)
+            else:  # throwaway copies keep the op, and what it saves for backward, the same
+                running = tuple(r.clone() for r in running)
+            return F.batch_norm(x, *running, self.weight, self.bias, True, self.momentum, self.eps)
         inv, shift = self.fold()
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class HeadBatchNorm(nn.BatchNorm1d):
+    """The head's BatchNorm1d as flax's ``nn.BatchNorm(momentum=0.9)``
+    computes it in float32: train mode normalizes with the biased batch
+    variance and moves the running variance towards that same biased
+    variance (torch's own BatchNorm1d would take the unbiased one)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        var, mean = torch.var_mean(x, dim=0, correction=0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class ConvBlock(nn.Sequential):
     """conv3x3 -> BN -> maxpool(pool, stride=pool) -> ReLU; children ``0``
     (Conv2d) and ``1`` (BN) as in the reference."""
 
-    def __init__(self, in_channels: int, channels: int, pool: Tuple[int, int], fold_bn_eval: bool):
+    def __init__(
+        self,
+        in_channels: int,
+        channels: int,
+        pool: Tuple[int, int],
+        fold_bn_eval: bool,
+        remat: bool = False,
+    ):
         super().__init__(nn.Conv2d(in_channels, channels, 3, padding=1), BandwidthBatchNorm(channels))
         self.pool = tuple(pool)
         self.fold_bn_eval = fold_bn_eval
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._block(x)
+        passes = []
+
+        def run(inp):
+            passes.append(None)
+            return self._block(inp, update_stats=len(passes) == 1)  # not on the recompute
+
+        return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+    def _block(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         conv, bn = self[0], self[1]
-        _eval_only(bn)
-        if self.fold_bn_eval:
+        if self.fold_bn_eval and not self.training:
             # eval BN is a per-channel affine and conv is linear, so
             # BN(conv(x, K, b)) == conv(x, K*inv, b*inv + shift)
             inv, shift = bn.fold()
@@ -88,7 +136,8 @@ class ConvBlock(nn.Sequential):
             bias = conv.bias * inv + shift
             x = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
         else:
-            x = bn(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1))
+            x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
+            x = bn(x, update_stats)
         ph, pw = self.pool
         if x.shape[2] < ph or x.shape[3] < pw:
             raise ValueError(
@@ -115,11 +164,10 @@ class _LogitsHead(nn.Sequential):
     """Dropout(0.3) -> BatchNorm1d -> Linear(out_dim), in float32."""
 
     def __init__(self, width: int, out_dim: int):
-        super().__init__(nn.Dropout(0.3), nn.BatchNorm1d(width), nn.Linear(width, out_dim))
+        super().__init__(Dropout(0.3), HeadBatchNorm(width), nn.Linear(width, out_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        return self[2](self[1](x))
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self[2](self[1](self[0](x, gen)))
 
 
 class StandardHybrid(nn.Module):
@@ -135,6 +183,7 @@ class StandardHybrid(nn.Module):
         feat_shape: Tuple[int, int],
         compute_dtype: str = "bfloat16",
         fold_bn_eval: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.cfg = cfg
@@ -142,7 +191,8 @@ class StandardHybrid(nn.Module):
         c = cfg.hidden_channels
         # the input gets one channel axis (the JAX package's x[..., None])
         self.conv_encoder = nn.ModuleList(
-            ConvBlock(1 if i == 0 else c, c, cfg.pool_dim, fold_bn_eval) for i in range(NUM_BLOCKS)
+            ConvBlock(1 if i == 0 else c, c, cfg.pool_dim, fold_bn_eval, remat)
+            for i in range(NUM_BLOCKS)
         )
         fp, _ = conv_output_shape(feat_shape, cfg.pool_dim)
         self.hidden = fp * c
@@ -151,11 +201,11 @@ class StandardHybrid(nn.Module):
         )
         self.logits = _LogitsHead(self.hidden, cfg.out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x[:, None].to(self.compute_dtype)
         for block in self.conv_encoder:
             x = block(x)
-        x = x.to(torch.float32)
+        x = x.to(self.logits[2].weight.dtype)  # the head's dtype: float32 but in a float64 reference
         b, c, fp, tp = x.shape
         seq = x.permute(0, 3, 2, 1).reshape(b, tp, fp * c)  # [B, T', (F', C)]
         out, _ = self.seq_layers(seq)
@@ -164,7 +214,7 @@ class StandardHybrid(nn.Module):
             seq_out = fwd + out[..., self.hidden :] + seq
         else:
             seq_out = fwd + seq
-        return self.logits(seq_out[:, -1])
+        return self.logits(seq_out[:, -1], gen)
 
 
 class EncoderModule(nn.Module):
@@ -174,8 +224,8 @@ class EncoderModule(nn.Module):
         super().__init__()
         self.encoder = encoder
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x)
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.encoder(x, gen)
 
 
 def make_backbone(
@@ -185,9 +235,10 @@ def make_backbone(
     feat_shape: Tuple[int, int],
     compute_dtype: str = "bfloat16",
     fold_bn_eval: bool = False,
+    remat: bool = False,
 ) -> EncoderModule:
     if encoder_name == "Hybrid":
-        return EncoderModule(StandardHybrid(hybrid_cfg, feat_shape, compute_dtype, fold_bn_eval))
+        return EncoderModule(StandardHybrid(hybrid_cfg, feat_shape, compute_dtype, fold_bn_eval, remat))
     if encoder_name == "CNN":
         raise NotImplementedError("the StandardCNN encoder is a later slice of the port")
     raise ValueError(f"unknown encoder {encoder_name!r}")

@@ -8,8 +8,11 @@ episodes in one launch, one block per episode and tile of queries, each
 block reading its inputs in one memory round (``head_plan`` sizes the
 launch). ``batched_episode_scores`` takes the plain version
 for CPU tensors and launches the kernel for CUDA tensors, through an
-``autograd.Function`` whose backward is autograd through the plain version,
-as ``_fused_scores_bwd`` is in the JAX package.
+``autograd.Function`` whose backward is the closed-form VJP of the head
+(``episode_scores_backward``): a few tensor ops on the saved inputs and the
+forward's scores, the same function that the JAX package's
+``_fused_scores_bwd`` gets from XLA's VJP of its plain head. The backward
+has no kernel of its own because the JAX package's has none.
 
 Shapes: support ``[E, S, D]``, labels ``[E, S]`` ints in ``[0, n_way)``,
 queries ``[E, Q, D]`` -> scores ``[E, Q, n_way]`` = ``-||q - proto||``.
@@ -20,10 +23,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from audio_few_shot_learning_tpu_torch.ops import cuda_build
 
+# the distance of a clamped d2, sqrt(0 + 1e-24) in float32, as the head computes it
+DIST_FLOOR = float(np.sqrt(np.float32(1e-24)))
 SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
 Q_TILE = 8  # query rows per block of K2, one per warp (csrc/protohead.cu kWarps)
 
@@ -159,31 +165,60 @@ def episode_scores_cuda(
 episode_scores_cuda.launches = 0
 
 
+def episode_scores_backward(
+    grad: torch.Tensor,
+    support: torch.Tensor,
+    support_labels: torch.Tensor,
+    queries: torch.Tensor,
+    scores: torch.Tensor,
+    n_way: int,
+):
+    """Closed-form VJP of ``scores = -sqrt(clamp_min(d2, 0) + 1e-24)``,
+    ``d2 = |q|^2 + |p|^2 - 2 q·p``, ``p`` the class means of the support.
+
+    With ``dist = -scores`` and ``G = grad * [d2 > 0] / dist`` (``[E, Q, N]``):
+    ``g_q = G P - rowsum(G) q``, ``g_P = G^T Q - colsum(G) P`` and
+    ``g_support = onehot (g_P / counts)``. ``d2`` was clamped exactly where
+    ``dist`` is ``DIST_FLOOR``. Returns ``(g_support [E, S, D], g_queries
+    [E, Q, D])`` in float32 (float64 for float64 inputs)."""
+    dtype = torch.promote_types(support.dtype, torch.float32)
+    sup = support.detach().to(dtype)
+    qry = queries.detach().to(dtype)
+    dist = -scores.detach().to(dtype)
+    g = torch.where(dist > DIST_FLOOR, grad.to(dtype) / dist, 0.0)  # G [E, Q, N]
+    onehot = _onehot(support_labels, n_way, dtype)  # [E, S, N]
+    counts = onehot.sum(dim=-2).clamp_min(1.0)  # [E, N]
+    protos = (onehot.transpose(-1, -2) @ sup) / counts[..., None]  # [E, N, D]
+    g_qry = g @ protos - g.sum(dim=-1, keepdim=True) * qry
+    g_protos = g.transpose(-1, -2) @ qry - g.sum(dim=-2)[..., None] * protos
+    g_sup = onehot @ (g_protos / counts[..., None])
+    return g_sup, g_qry
+
+
 class _FusedScores(torch.autograd.Function):
-    """K2 forward; backward is autograd through the plain version."""
+    """The head's forward (K2 on the card, the plain version on the CPU);
+    backward ``episode_scores_backward``."""
 
     @staticmethod
     def forward(ctx, support, support_labels, queries, n_way):
-        ctx.save_for_backward(support, support_labels, queries)
+        if support.device.type == "cpu":
+            out = batched_episode_scores_reference(support, support_labels, queries, n_way)
+        else:
+            out = episode_scores_cuda(support, support_labels, queries, n_way)
+        ctx.save_for_backward(support, support_labels, queries, out)
         ctx.n_way = n_way
-        return episode_scores_cuda(support, support_labels, queries, n_way)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        support, support_labels, queries = ctx.saved_tensors
-        with torch.enable_grad():
-            s = support.detach().requires_grad_(True)
-            q = queries.detach().requires_grad_(True)
-            out = batched_episode_scores_reference(s, support_labels, q, ctx.n_way)
-            g_sup, g_qry = torch.autograd.grad(out, (s, q), grad)
-        return g_sup, None, g_qry, None
+        support, support_labels, queries, out = ctx.saved_tensors
+        g_sup, g_qry = episode_scores_backward(grad, support, support_labels, queries, out, ctx.n_way)
+        return g_sup.to(support.dtype), None, g_qry.to(queries.dtype), None
 
 
 def batched_episode_scores(
     support: torch.Tensor, support_labels: torch.Tensor, queries: torch.Tensor, n_way: int
 ) -> torch.Tensor:
     """Fused episode head for a batch of episodes: the plain version on the
-    CPU, K2 on the card."""
-    if support.device.type == "cpu":
-        return batched_episode_scores_reference(support, support_labels, queries, n_way)
+    CPU, K2 on the card; differentiable in support and queries."""
     return _FusedScores.apply(support, support_labels, queries, n_way)

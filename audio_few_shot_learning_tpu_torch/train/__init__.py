@@ -1,1 +1,2 @@
-"""Evaluation/serving engine and the weight bridge."""
+"""The engine (training, evaluation, prediction), optimizer and schedule,
+checkpoints, early stopping, the experiment driver and the weight bridge."""

@@ -1,32 +1,46 @@
-"""The serving engine: episodic evaluation and fixed-episode prediction.
+"""The engine: episodic training, evaluation and fixed-episode prediction.
 
-Counterpart of the forward-only half of the JAX package's
-``train/engine.py``. Every eval batch samples E episodes from the
-device-resident store, makes SpecAugment's views for support and queries
-(K1 on the card), runs the episode model with the fused head (K2 on the
-card) and scores the argmax, with no host synchronization until the
-accuracies of the whole run are read back. ``predict_episode`` runs the same
-pipeline on one caller-supplied episode.
+Counterpart of the JAX package's ``train/engine.py``.
+
+Training: every optimizer step samples E episodes (``episode_batch``) from
+the device-resident store, makes SpecAugment's views for support and
+queries (K1 on the card), runs the episode model in train mode with the
+fused head (K2 forward on the card, its closed-form backward in plain
+tensor ops), adds FSL and ``l_param`` x (CPL | APL) against the projected
+(or L2-normalized) prototypes, and takes one Adam step under the MultiStepLR
+schedule. With ``episode_microbatch`` the batch goes through in chunks whose
+gradients and metrics are averaged, the BatchNorm statistics carried from
+chunk to chunk. An epoch synchronizes with the host once, to read its
+metrics. Views, view permutations, dropout masks and CPL's Gumbel draws all
+come from the trainer's one ``torch.Generator``, so a run is reproducible
+from its seed and a resumed run replays it; ``TrainDraws`` fixes all but
+the dropout masks as data.
+
+Evaluation: every eval batch samples E episodes, makes the views, runs the
+model in eval mode and scores the argmax, with no host synchronization
+until the accuracies of the whole run are read back. ``predict_episode``
+runs the same pipeline on one caller-supplied episode.
 
 Wav-input configs (``input_type: "wav"``) sample raw waveforms from a
 ``PackedWavStore`` instead; support and queries of the whole batch go
 through one online log-mel call (K3 on the card) and the store's global
-z-norm, and then through the same model. WaveAugment is off for them (a
-later slice), so every item has one view.
+z-norm, and then through the same model, one view per item.
 
 The engine runs on the card unless the caller asks for the CPU, through
 ``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
-such request it raises. Training, multi-segment evaluation and WaveAugment
-come with later slices.
+such request it raises. WaveAugment, multi-segment evaluation and the
+``bn_per_view_group`` knob come with later slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audio_few_shot_learning_tpu_torch.config import HOP_LENGTH, N_MELS, ExperimentConfig, ModelConfig
 from audio_few_shot_learning_tpu_torch.data.episodes import (
@@ -36,11 +50,62 @@ from audio_few_shot_learning_tpu_torch.data.episodes import (
 )
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
+from audio_few_shot_learning_tpu_torch.losses import angular_loss, cpl_loss, fsl_loss
 from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
 from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
 from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
+from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
 
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
+METRIC_NAMES = ("loss", "fsl_loss", "cpl_loss")
+
+
+def _slice_tree(obj, sl: slice):
+    """``obj`` with every tensor in it (dataclass fields, tuples) sliced on
+    its leading episode axis; None stays None."""
+    if obj is None:
+        return None
+    if isinstance(obj, torch.Tensor):
+        return obj[sl]
+    if isinstance(obj, tuple):
+        return tuple(_slice_tree(x, sl) for x in obj)
+    return type(obj)(**{f.name: _slice_tree(getattr(obj, f.name), sl) for f in dataclasses.fields(obj)})
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """Randomness of one train step given as data, each with a leading
+    episode axis E; a field left None is drawn from the trainer's generator.
+    The dropout masks always come from the generator."""
+
+    support: Optional[Draws] = None  # SpecAugment draws of the support (ys, tmask, fmask)
+    query: Optional[Draws] = None  # ... of the queries
+    perms: Optional[torch.Tensor] = None  # [E, V-1] view shuffle of the contrastive branch
+    cpl_gumbel: Optional[torch.Tensor] = None  # [E, B, N, B] CPL's sampling noise
+
+
+class _StepClock:
+    """Step boundaries as CUDA events on the card (no host synchronization
+    until ``intervals_ms``, after the epoch has been read back) or host
+    clock readings on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            evt = torch.cuda.Event(enable_timing=True)
+            evt.record()
+            self.marks.append(evt)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_ms(self) -> List[float]:
+        pairs = zip(self.marks, self.marks[1:])
+        if self.cuda:
+            return [a.elapsed_time(b) for a, b in pairs]
+        return [1e3 * (b - a) for a, b in pairs]
 
 
 def resolve_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
@@ -73,6 +138,8 @@ class Trainer:
         self.is_wav = exp.input_type == "wav"
         if self.is_wav and exp.waveaug_params.use:
             raise NotImplementedError("WaveAugment (waveaug_params.use) is a later slice of the port")
+        if exp.tpu.bn_per_view_group:
+            raise NotImplementedError("tpu.bn_per_view_group is a later slice of the port")
         self.exp = exp
         self.mdl = mdl
         self.device = resolve_device(exp, device)
@@ -82,6 +149,15 @@ class Trainer:
         self.specaug = not self.is_wav and exp.specaug_params.use
         self.v_support = NUM_SPECAUG_VIEWS if self.specaug else 1
         self.eval_episode_batch = exp.tpu.eval_episode_batch
+        self.episode_batch = exp.tpu.episode_batch
+        self.microbatch = exp.tpu.episode_microbatch
+        if self.microbatch is not None and self.episode_batch % self.microbatch != 0:
+            raise ValueError(
+                f"episode_microbatch={self.microbatch} must divide "
+                f"episode_batch={self.episode_batch}"
+            )
+        self.steps_per_epoch = -(-exp.n_training_tasks // self.episode_batch)
+        self.aux_loss = exp.use_contrastive and (exp.loss.cpl.use or exp.loss.angular.use)
         if self.is_wav:
             # the reference's on-device torchaudio MelSpectrogram + 10*log10
             self.mel = MelSpec(flavor="online")
@@ -95,7 +171,11 @@ class Trainer:
             model = FewShotEpisodeModel(exp, mdl, feat_shape)
         self.model = model.to(self.device).eval()
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.optimizer = make_optimizer(self.model.parameters(), exp.lr)
+        self.step = 0  # optimizer updates taken; drives the schedule
         self.last_eval_seconds: Optional[float] = None
+        self.last_epoch_seconds: Optional[float] = None
+        self.last_step_ms: List[float] = []
 
     # ------------------------------------------------------------------
     # views
@@ -128,6 +208,125 @@ class Trainer:
         mels = (mels - store.mean) / store.std
         per_ep = mels.reshape(e, -1, 1, *mels.shape[-2:])
         return per_ep[:, :s], per_ep[:, s:]
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def _loss_and_metrics(
+        self, ep: EpisodeBatch, draws: Optional[TrainDraws] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean loss over the E episodes of ``ep`` and its metrics
+        ``[loss, fsl_loss, cpl_loss]`` (detached), in train mode."""
+        exp = self.exp
+        n_way = exp.n_way_train
+        vq = self._v_query(exp.train_query_augmentations)
+        e = ep.support.shape[0]
+        draws = draws or TrainDraws()
+        if self.is_wav:
+            sup_views, qry_views = self._make_wav_views(ep.support, ep.query, self.train_store)
+        else:
+            sup_views = self._make_views(ep.support, self.specaug, self.gen, draws.support)
+            qry_views = self._make_views(ep.query, vq > 1, self.gen, draws.query)
+
+        perms = None
+        if exp.use_attention and vq > 1:
+            perms = draws.perms
+            if perms is None:
+                u = torch.rand((e, vq - 1), generator=self.gen, device=self.device)
+                perms = u.argsort(dim=-1) + 1
+        outs = self.model(
+            sup_views, qry_views, ep.support_labels, n_way,
+            shuffle_perm=perms, with_contrastive=exp.use_contrastive, gen=self.gen,
+        )
+        tile = 1 if exp.use_attention else vq
+        q_labels = ep.query_labels.repeat(1, tile)  # loops/loops.py:36-37
+
+        fsl = fsl_loss(outs.scores, q_labels)  # [E]
+        aux = torch.zeros_like(fsl)
+        if self.aux_loss:
+            if exp.project_prototypes:  # projecting overrides normalizing
+                protos_c = outs.cpl_prototypes_projected
+            elif exp.normalize_prototypes:
+                protos_c = F.normalize(outs.prototypes, dim=-1)
+            else:
+                protos_c = outs.prototypes
+            if exp.loss.cpl.use:
+                aux = cpl_loss(
+                    protos_c, outs.cpl_features, q_labels, exp.loss.cpl.m_param,
+                    exp.loss.cpl.t_param, gumbel=draws.cpl_gumbel, gen=self.gen,
+                )
+            else:
+                ang = exp.loss.angular
+                aux = angular_loss(
+                    protos_c, outs.cpl_features, q_labels, ang.angle, ang.prototypes_as_anchors
+                )
+        total = (fsl + exp.loss.l_param * aux).mean()
+        metrics = torch.stack([total, fsl.mean(), aux.mean()]).detach()
+        return total, metrics
+
+    def train_step(self, ep: EpisodeBatch, draws: Optional[TrainDraws] = None) -> torch.Tensor:
+        """One optimizer step on an assembled episode batch; returns its
+        metrics ``[loss, fsl_loss, cpl_loss]`` on the device (no host
+        synchronization). With ``episode_microbatch`` the batch goes through
+        in chunks: gradients and metrics are averaged over the chunks, and
+        each chunk's forward moves the BatchNorm statistics."""
+        self.model.train()
+        e = ep.support.shape[0]
+        size = self.microbatch if self.microbatch and self.microbatch < e else e
+        chunks = e // size
+        self.optimizer.zero_grad(set_to_none=True)
+        metrics = None
+        for c in range(chunks):
+            sl = slice(c * size, (c + 1) * size)
+            total, m = self._loss_and_metrics(_slice_tree(ep, sl), _slice_tree(draws, sl))
+            (total / chunks).backward()
+            metrics = m if metrics is None else metrics + m
+        exp = self.exp
+        lr = scheduled_lr(
+            self.step, exp.lr, exp.scheduler_milestones, exp.scheduler_gamma, self.steps_per_epoch
+        )
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+        return metrics / chunks
+
+    def train_epoch(self) -> Dict[str, float]:
+        """``steps_per_epoch`` steps of ``episode_batch`` episodes sampled from
+        the train store; the metrics are read back once, at the end."""
+        exp = self.exp
+        sampler = sample_wav_episode if self.is_wav else sample_episode
+        clock = _StepClock(self.device)
+        per_step = []
+        t0 = time.perf_counter()
+        clock.mark()
+        for _ in range(self.steps_per_epoch):
+            ep = sampler(
+                self.gen, self.train_store, exp.n_way_train, exp.n_shot_train,
+                exp.n_query_train, self.episode_batch,
+            )
+            per_step.append(self.train_step(ep))
+            clock.mark()
+        means = torch.stack(per_step).mean(dim=0).tolist()  # the epoch's one synchronization
+        self.last_epoch_seconds = time.perf_counter() - t0
+        self.last_step_ms = clock.intervals_ms()
+        out = dict(zip(METRIC_NAMES, means))
+        if not self.aux_loss:
+            out["cpl_loss"] = float("nan")  # the reference reports NaN (loops/loops.py:59)
+        out["episodes_per_sec"] = self.steps_per_epoch * self.episode_batch / self.last_epoch_seconds
+        return out
+
+    def validate(self) -> Tuple[float, float]:
+        exp = self.exp
+        return self.evaluate(
+            self.val_store,
+            n_tasks=exp.n_training_tasks,  # the reference validates on num_train_tasks (src/train_test.py:136)
+            n_way=exp.n_way_validation,
+            k_shot=exp.n_shot_validation,
+            k_query=exp.n_query_validation,
+            augment_query=exp.validation_query_augmentations,
+        )
 
     # ------------------------------------------------------------------
     # evaluation
@@ -182,6 +381,7 @@ class Trainer:
         """Mean and std of per-task accuracy over ``n_tasks`` episodes."""
         if multisegment:
             raise NotImplementedError("multi-segment evaluation is a later slice of the port")
+        self.model.eval()
         eligible = int((store.class_counts >= k_shot + k_query).sum())
         if eligible < n_way:
             raise ValueError(
@@ -237,6 +437,7 @@ class Trainer:
         ``(ys [1, S|Q, T], tmask [1, T], fmask [1, F])``, fix the augmentation;
         by default the draws come from a generator seeded with 0.
         """
+        self.model.eval()
         labels = torch.as_tensor(np.asarray(support_labels), dtype=torch.long)
         if n_way is None:
             n_way = int(labels.max()) + 1

@@ -42,7 +42,33 @@ Imports nothing of JAX or of the JAX package. In order it:
    and 5 queries, the seeded flagship spec model saved as ``model.pt``, and
    ``cli.predict.main`` in-process on the card (offline log-mel per clip,
    then SpecAugment views and the head): launches K3 one per clip, K1 2, K2 1;
-9. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+9. K2 backward phase: the closed-form VJP that K2's ``autograd.Function``
+   runs in backward, against autograd through the plain version on the card
+   (atol 1e-5) at the train step's head shapes (E=1 and a chunk of E=4),
+   and its time beside the forward kernel's;
+10. spec train phase: ``Trainer.train_epoch`` on the same 35 x 40 store and
+   the flagship CPL configuration (lr 7e-4, l 2.022308, M 5, T 9.2361, bf16)
+   at ``episode_batch: 1``, 2 epochs of 32 tasks, then ``validate()``; the
+   launches per step must be K1 2, K2 1, K3 0; prints episodes/s and ms per
+   step (median over the second epoch's steps, CUDA events), peak memory,
+   the profiler's busy share and top ops over 4 more steps, and the losses,
+   which must be finite;
+11. accumulation phase: ``episode_batch: 8, episode_microbatch: 4`` (remat
+   on), 3 steps: launches per step K1 2 x 2, K2 1 x 2, and every BatchNorm's
+   ``num_batches_tracked`` moved once per chunk (not twice through the
+   recompute);
+12. APL phase and wav train phase (``Trainer.train_epoch``, 4 steps each;
+   wav: launches per step K3 1, K2 1, K1 0);
+13. train card-vs-CPU phase: one flagship step (E=1), float32 with TF32 off
+   on the card against float64 on the CPU, with the same weights, episode,
+   views, view permutations and CPL draws given as data and every dropout
+   at p = 0 on both copies: loss, every gradient and every parameter after
+   the Adam step compared;
+14. ``cli.train_test`` phase: a 15-class 128x157 dataset written by the
+   port's ``make_synthetic_dataset`` (5 classes per split, 5-way on each),
+   1 run of 2 epochs x 16 tasks, 32 test tasks; ``result_run0.json`` must
+   exist and its accuracy exceed 0.4 (5-way chance 0.2);
+15. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Any failure raises and exits non-zero. Exits non-zero without a result when
 no CUDA device is present.
@@ -71,9 +97,17 @@ SR, CLIP = 16000, 80000  # 5-s clips: 1 + 80000 // 512 = 157 frames
 N_WAY, K_SHOT, K_QUERY = 5, 5, 5
 EVAL_BATCH = 16
 TEST_TASKS = 64
-# launches of K1, K2, K3 per eval batch and per prediction
+# launches of K1, K2, K3 per eval batch, per prediction and per train step (or chunk)
 SPEC_LAUNCHES = [2, 1, 0]
 WAV_LAUNCHES = [0, 1, 1]
+TRAIN_TASKS = 32
+K2_BWD_ATOL = 1e-5  # closed form vs autograd through the plain version, both f32
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-3  # of each tensor's largest |g|
+# a conv bias ahead of a train-mode BatchNorm, which removes its mean, has
+# a gradient of zero but for rounding: held to this share of its conv
+# weight's largest |g|
+BN_BIAS_NOISE = 1e-2
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
 K1_TOL_F32 = 1e-5  # same separately rounded f32 ops as the plain version
 K2_ATOL, K2_RTOL = 1e-4, 1e-5  # another summation order than the plain matmul
@@ -162,21 +196,28 @@ def profile(fn) -> dict:
     )
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, attempts: int = 3) -> list:
     """Names of the device activities (kernels, copies, fills) that one call
-    of ``fn`` runs, under ``torch.profiler``, after a warm-up call."""
+    of ``fn`` runs, under ``torch.profiler``, after a warm-up call. A trace
+    that holds no device activity at all is the profiler's loss, not the
+    call's (every ``fn`` here launches at least one kernel, which its
+    counter shows), so such a trace is taken again, up to ``attempts``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     names = []
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            names += [evt.key] * evt.count
+    for _ in range(attempts):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = []
+        for evt in prof.key_averages():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                names += [evt.key] * evt.count
+        if names:
+            break
     return names
 
 
@@ -391,6 +432,28 @@ def flagship_exp(input_type="spec", **tpu):
     return ExperimentConfig.from_dict(flagship_dict(input_type, **tpu))
 
 
+def train_dict(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, **tpu):
+    """The flagship training configuration (``__graft_entry__.py:25-65``:
+    lr 7e-4, CPL with l 2.022308, M 5, T 9.2361; with ``loss="apl"`` the
+    angular loss of ``configs/esc50_apl.json``: l 1.7235, 15 degrees,
+    prototypes as anchors), ``tasks`` training tasks per epoch."""
+    d = flagship_dict(input_type, **tpu)
+    aux = {"l_param": 2.022308, "cpl": {"use": True, "m_param": 5, "t_param": 9.2361},
+           "angular": {"use": False}}
+    if loss == "apl":
+        aux = {"l_param": 1.7235, "cpl": {"use": False},
+               "angular": {"use": True, "angle": 15, "prototypes_as_anchors": True}}
+    d.update(lr=7e-4, n_training_tasks=tasks, num_epochs=2, train_query_augmentations=True,
+             validation_query_augmentations=True, loss=aux)
+    return d
+
+
+def train_exp(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, **tpu):
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig.from_dict(train_dict(input_type, loss, tasks, **tpu))
+
+
 def kernel_counters():
     from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
 
@@ -586,6 +649,271 @@ def cli_phase(dev):
                 predicted=[p["predicted_class"] for p in preds])
 
 
+def k2_backward_phase(dev):
+    """K2's backward (the closed-form VJP) against autograd through the
+    plain version on the card, at the train step's head: E=1 and a chunk of
+    E=4, S=Q=25, D=4x64, N=5, support and queries slices of one tensor."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.ops import protohead
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for e in (1, 4):
+        s = q = N_WAY * K_SHOT
+        fused = torch.randn((e, s + q, 4 * 64), generator=gen, device=dev)
+        sup, qry = fused[:, :s], fused[:, s:]
+        lab = torch.arange(N_WAY, device=dev).repeat_interleave(K_SHOT).expand(e, -1)
+        cot = torch.randn((e, q, N_WAY), generator=gen, device=dev)
+        scores = protohead.episode_scores_cuda(sup, lab, qry, N_WAY)
+        g_sup, g_qry = protohead.episode_scores_backward(cot, sup, lab, qry, scores, N_WAY)
+        a, b = sup.detach().clone().requires_grad_(True), qry.detach().clone().requires_grad_(True)
+        protohead.batched_episode_scores_reference(a, lab, b, N_WAY).backward(cot)
+        torch.cuda.synchronize()
+        err = max((g_sup - a.grad).abs().max().item(), (g_qry - b.grad).abs().max().item())
+        if not err <= K2_BWD_ATOL:
+            raise AssertionError(f"K2 backward at E={e} disagrees with autograd of the plain version: {err}")
+
+        def plain_bwd():
+            x, y = sup.detach().requires_grad_(True), qry.detach().requires_grad_(True)
+            torch.autograd.grad(protohead.batched_episode_scores_reference(x, lab, y, N_WAY), (x, y), cot)
+
+        rows.append(dict(
+            e=e, max_abs_err=err, tolerance=K2_BWD_ATOL,
+            forward_ms=graph_ms(lambda: protohead.episode_scores_cuda(sup, lab, qry, N_WAY)),
+            backward_ms=graph_ms(lambda: protohead.episode_scores_backward(cot, sup, lab, qry, scores, N_WAY)),
+            plain_forward_backward_ms=graph_ms(plain_bwd),
+        ))
+    return rows
+
+
+def bn_counts(model) -> list:
+    return [int(m.num_batches_tracked) for m in model.modules() if hasattr(m, "num_batches_tracked")]
+
+
+def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=False):
+    """``Trainer.train_epoch`` for ``epochs`` epochs on ``store`` with the
+    launches of K1, K2, K3 per step (per chunk: ``expected`` x chunks) and,
+    with ``check_bn``, each BatchNorm's updates per chunk asserted; then
+    ``validate()`` and a profiler pass over ``profile_steps`` more steps."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode, sample_wav_episode
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    kernels = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=0)
+    sampler = sample_wav_episode if trainer.is_wav else sample_episode
+    e = trainer.episode_batch
+    chunks = e // (trainer.microbatch or e)
+    steps = trainer.steps_per_epoch
+    bn_before = bn_counts(trainer.model)
+    for k in kernels:
+        k.launches = 0
+    epochs_out = [trainer.train_epoch()]
+    launches = [k.launches for k in kernels]
+    bn_moves = [b - a for a, b in zip(bn_before, bn_counts(trainer.model))]
+    want = [n * chunks for n in expected]
+    if [n / steps for n in launches] != want:
+        raise AssertionError(
+            f"train path launched K1, K2, K3 {launches} times in {steps} steps of {chunks} "
+            f"chunk(s); expected {want} per step"
+        )
+    if check_bn and bn_moves != [steps * chunks] * len(bn_moves):
+        raise AssertionError(
+            f"BatchNorm statistics moved {bn_moves} times in {steps} steps of {chunks} chunks; "
+            f"expected {steps * chunks} each (once per chunk)"
+        )
+    for _ in range(1, epochs):
+        epochs_out.append(trainer.train_epoch())
+    step_ms = trainer.last_step_ms  # the last epoch's
+    for out in epochs_out:
+        if not all(np.isfinite(out[k]) for k in ("loss", "fsl_loss", "cpl_loss")):
+            raise AssertionError(f"non-finite training losses: {epochs_out}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    val = trainer.validate()
+    if not (np.isfinite(val[0]) and 0.0 <= val[0] <= 1.0):
+        raise AssertionError(f"validation accuracy out of range: {val}")
+
+    def steps_fn():
+        for _ in range(profile_steps):
+            trainer.train_step(sampler(trainer.gen, store, N_WAY, K_SHOT, K_QUERY, e))
+
+    prof = profile(steps_fn)
+    med = float(np.median(step_ms))
+    return dict(
+        episode_batch=e, microbatch=trainer.microbatch, chunks=chunks,
+        remat=trainer.exp.tpu.remat_enabled(), steps_per_epoch=steps, epochs=epochs_out,
+        launches_first_epoch=launches, launches_per_step=[n / steps for n in launches],
+        bn_updates_first_epoch=bn_moves, step_ms=step_ms, step_ms_median=med,
+        train_episodes_per_s_median=1e3 * e / med, peak_mem_gb=peak,
+        validate=dict(mean=val[0], std=val[1], seconds=trainer.last_eval_seconds),
+        profile_steps=profile_steps, profile=prof,
+    )
+
+
+def train_card_vs_cpu_phase(dev, store):
+    """One flagship train step (E=1) in float32 with TF32 off on the card
+    (K1, K2 and its closed-form backward, cuDNN) against the same step in
+    float64 on the CPU (plain versions): same weights, episode, views,
+    permutations and CPL draws, every dropout at p = 0 on both. The CPU runs
+    float64 because a float32 CPU step is itself off by up to 1.8e-3 of the
+    largest |g| in blocks 0-1 (4M-term reductions), where the card's float32
+    step is within 1.5e-4 of float64 (PERF.md, PR 4)."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.losses import draw_cpl_gumbel
+    from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
+    from audio_few_shot_learning_tpu_torch.train.engine import TrainDraws, Trainer
+
+    exp = train_exp(compute_dtype="float32", episode_batch=1)
+    card = Trainer(exp, ModelConfig(), store, device=dev, seed=3)
+    exp64 = train_exp(compute_dtype="float64", episode_batch=1)
+    cpu = Trainer(exp64, ModelConfig(), store, device="cpu", seed=3)  # the store only gives shapes
+    cpu.model.double()
+    init = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
+    cpu.model.load_state_dict(init)
+    for model in (card.model, cpu.model):
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+
+    ep = sample_episode(torch.Generator(device=dev).manual_seed(5), store, N_WAY, K_SHOT, K_QUERY, 1)
+    ep_cpu = type(ep)(**{f.name: getattr(ep, f.name).cpu() for f in dataclasses.fields(ep)})
+    g = torch.Generator().manual_seed(6)
+    draws_cpu = TrainDraws(
+        support=draw_views_params(g, exp.specaug_params, 1, N_WAY * K_SHOT, N_MELS, N_FRAMES, "cpu"),
+        query=draw_views_params(g, exp.specaug_params, 1, N_WAY * K_QUERY, N_MELS, N_FRAMES, "cpu"),
+        perms=torch.rand((1, 3), generator=g).argsort(dim=-1) + 1,
+        cpl_gumbel=draw_cpl_gumbel(g, 1, N_WAY * K_QUERY, N_WAY, "cpu"),
+    )
+    draws_card = TrainDraws(
+        support=tuple(x.to(dev) for x in draws_cpu.support),
+        query=tuple(x.to(dev) for x in draws_cpu.query),
+        perms=draws_cpu.perms.to(dev), cpl_gumbel=draws_cpu.cpl_gumbel.to(dev),
+    )
+    t0 = time.perf_counter()
+    m_card = card.train_step(ep, draws_card).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu = cpu.train_step(ep_cpu, draws_cpu)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(m_card[0].item() - m_cpu[0].item()) / abs(m_cpu[0].item())
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train step loss card {m_card.tolist()} vs CPU {m_cpu.tolist()}")
+
+    cpu_params = dict(cpu.model.named_parameters())
+    lr = exp.lr
+    worst = dict(grad_rel=0.0, bn_bias_grad_rel=0.0, param_over_lr=0.0, small_param_over_lr=0.0)
+    for name, p in card.model.named_parameters():
+        if p.grad is None:  # the reference's unused projection LayerNorms
+            continue
+        gc, gp = p.grad.cpu().double(), cpu_params[name].grad
+        pc, pp = p.detach().cpu().double(), cpu_params[name].detach()
+        if name.startswith("backbone.encoder.conv_encoder.") and name.endswith(".0.bias"):
+            ref = cpu_params[name.replace(".bias", ".weight")].grad.abs().max().item()
+            rel = max(gc.abs().max().item(), gp.abs().max().item()) / ref
+            worst["bn_bias_grad_rel"] = max(worst["bn_bias_grad_rel"], rel)
+            if not rel <= BN_BIAS_NOISE:
+                raise AssertionError(f"{name}: gradient {rel} of its conv weight's, not rounding noise")
+            small = torch.ones_like(gp, dtype=torch.bool)
+        else:
+            scale = gp.abs().max().item()
+            diff = (gc - gp).abs().max().item()
+            worst["grad_rel"] = max(worst["grad_rel"], diff / scale if scale else diff)
+            if not diff <= TRAIN_GRAD_REL * scale:
+                raise AssertionError(f"{name}: gradient card vs CPU differs by {diff}, largest |g| {scale}")
+            # Adam's first step is ~lr * sign(g): where |g| is within the
+            # allowed difference its sign, and the step, may flip
+            small = gp.abs() <= TRAIN_GRAD_REL * scale
+        diff = (pc - pp).abs() / lr
+        big_diff = diff[~small].max().item() if (~small).any() else 0.0
+        small_diff = diff[small].max().item() if small.any() else 0.0
+        worst["param_over_lr"] = max(worst["param_over_lr"], big_diff)
+        worst["small_param_over_lr"] = max(worst["small_param_over_lr"], small_diff)
+        if not (big_diff <= 1e-2 and small_diff <= 2.0):
+            raise AssertionError(f"{name}: parameters after Adam differ by {big_diff} x lr "
+                                 f"(where the gradient's sign is sure) and {small_diff} x lr (else)")
+
+    # the same step in float32 on the CPU, against float64: why the CPU copy
+    # runs float64 (reported, not asserted)
+    cpu32 = Trainer(exp, ModelConfig(), store, device="cpu", seed=3)
+    cpu32.model.load_state_dict(init)
+    for m in cpu32.model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    cpu32.train_step(ep_cpu, draws_cpu)
+    f32_rel = {}
+    for name, p in cpu32.model.named_parameters():
+        if p.grad is None or name.endswith(".0.bias") and "conv_encoder" in name:
+            continue
+        gp = cpu_params[name].grad
+        scale = gp.abs().max().item()
+        if scale:
+            f32_rel[name] = dict(
+                cpu_float32=(p.grad.double() - gp).abs().max().item() / scale,
+                card_float32=(dict(card.model.named_parameters())[name].grad.cpu().double() - gp)
+                .abs().max().item() / scale,
+            )
+    top = sorted(f32_rel.items(), key=lambda kv: -kv[1]["cpu_float32"])[:4]
+    return dict(loss_card=m_card.tolist(), loss_cpu=m_cpu.tolist(), loss_rel=loss_rel,
+                tolerances=dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel=TRAIN_GRAD_REL,
+                                bn_bias_grad_rel=BN_BIAS_NOISE, param_over_lr=1e-2,
+                                small_param_over_lr=2.0),
+                worst=worst, card_step_s=card_s, cpu_step_s=cpu_s,
+                float32_grad_rel_vs_float64_largest_on_cpu=dict(top))
+
+
+def train_cli_phase():
+    """``cli.train_test`` in-process on the card, on a dataset written by the
+    port's ``make_synthetic_dataset``: 15 classes of 128x157 (5 per split,
+    so every split holds a 5-way episode), band gain 4.0."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.cli import train_test
+    from audio_few_shot_learning_tpu_torch.data.datasets import make_synthetic_dataset
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        make_synthetic_dataset(os.path.join(tmp, "synth"), n_classes=15, items_per_class=15,
+                               n_mels=N_MELS, n_frames=N_FRAMES, split_fractions=(5, 5, 5),
+                               band_gain=4.0)
+        d = train_dict(tasks=16, num_runs=1)
+        d.update(dataset_name="synth", data_root=tmp, n_testing_tasks=32, experiment_folder="smoke",
+                 patience=5)
+        with open(os.path.join(tmp, "exp.json"), "w") as f:
+            json.dump(d, f)
+        with open(os.path.join(tmp, "mdl.json"), "w") as f:
+            json.dump({}, f)
+        kernels = kernel_counters()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = train_test.main(["-e", os.path.join(tmp, "exp.json"), "-m",
+                                       os.path.join(tmp, "mdl.json"),
+                                       "--experiments-root", os.path.join(tmp, "experiments")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+        path = os.path.join(tmp, "experiments", "smoke", "result_run0.json")
+        if not os.path.exists(path):
+            raise AssertionError("cli.train_test wrote no result_run0.json")
+        with open(path) as f:
+            result = json.load(f)
+    if not result["mean_accuracy"] > 0.4:
+        raise AssertionError(f"cli.train_test test accuracy {result} is not above 0.4")
+    if not (launches[0] > 0 and launches[1] > 0):
+        raise AssertionError(f"cli.train_test launched K1, K2, K3 {launches} times")
+    return dict(result=result, results=results, wall_s=seconds, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -623,6 +951,23 @@ def main() -> int:
     cmp = card_vs_cpu_phase(dev, store, "spec")
     cmp["seconds"] = time.perf_counter() - t0
     print("spec card vs CPU: " + json.dumps(cmp), flush=True)
+
+    k2_bwd = k2_backward_phase(dev)
+    print("K2 backward: " + json.dumps(k2_bwd), flush=True)
+    train = train_phase(dev, store, train_exp(episode_batch=1), SPEC_LAUNCHES)
+    print(f"spec train phase, E=1 ({card}): " + json.dumps(train), flush=True)
+    accum = train_phase(dev, store, train_exp(tasks=24, episode_batch=8, episode_microbatch=4),
+                        SPEC_LAUNCHES, epochs=1, profile_steps=2, check_bn=True)
+    print(f"spec train phase, E=8 in chunks of 4 with remat ({card}): " + json.dumps(accum), flush=True)
+    if not accum["remat"]:
+        raise AssertionError("episode_microbatch 4 should turn remat on")
+    apl = train_phase(dev, store, train_exp(loss="apl", tasks=4, episode_batch=1), SPEC_LAUNCHES,
+                      epochs=1, profile_steps=2)
+    print(f"APL train phase ({card}): " + json.dumps(apl), flush=True)
+    t0 = time.perf_counter()
+    train_cmp = train_card_vs_cpu_phase(dev, store)
+    train_cmp["seconds"] = time.perf_counter() - t0
+    print("train step card vs CPU: " + json.dumps(train_cmp), flush=True)
     del store
 
     t0 = time.perf_counter()
@@ -636,18 +981,24 @@ def main() -> int:
     wav_cmp = card_vs_cpu_phase(dev, wav_store, "wav")
     wav_cmp["seconds"] = time.perf_counter() - t0
     print("wav card vs CPU: " + json.dumps(wav_cmp), flush=True)
+    wav_train = train_phase(dev, wav_store, train_exp("wav", tasks=4, episode_batch=1), WAV_LAUNCHES,
+                            epochs=1, profile_steps=2)
+    print(f"wav train phase ({card}): " + json.dumps(wav_train), flush=True)
     del wav_store
 
     cli = cli_phase(dev)
     print("raw-audio CLI: " + json.dumps(cli), flush=True)
+    train_cli = train_cli_phase()
+    print("cli.train_test: " + json.dumps(train_cli), flush=True)
 
     k1_f32, k2_flag, k3_eval = kern["K1"][0], kern["K2"][0], kern["K3"][0]
+    train_path = [train, train, wav_train]  # K3 trains on the wav path only
     common = [
         dict(name="specaugment_views",
              source="audio_few_shot_learning_tpu_torch/csrc/specaugment.cu",
              replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
              path=slc, library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
-             extra=dict(bf16=kern["K1"][1])),
+             extra=dict(bf16=kern["K1"][1], in_train_us=train["profile"]["k1_us_per_launch"])),
         dict(name="episode_scores",
              source="audio_few_shot_learning_tpu_torch/csrc/protohead.cu",
              replaces="audio_few_shot_learning_tpu/ops/protohead.py:136", row=k2_flag,
@@ -655,7 +1006,8 @@ def main() -> int:
              in_eval_us=slc["eval_profile"]["k2_us_per_launch"],
              extra=dict(library="torch.cdist on precomputed prototypes",
                         device_ops_per_call=k2_flag["device_ops_per_call"],
-                        cases=kern["K2"][1:], wav_path_launches=wav["eval_launches"][1])),
+                        cases=kern["K2"][1:], wav_path_launches=wav["eval_launches"][1],
+                        backward=k2_bwd, in_train_us=train["profile"]["k2_us_per_launch"])),
         dict(name="mel_log",
              source="audio_few_shot_learning_tpu_torch/csrc/mel.cu",
              replaces="audio_few_shot_learning_tpu/ops/mel.py:179", row=k3_eval,
@@ -663,7 +1015,8 @@ def main() -> int:
              in_eval_us=wav["eval_profile"]["k3_us_per_launch"],
              extra=dict(library="torch.matmul + torch.log10 (two calls, without eps and log_mult)",
                         bound_ms_dense_flops=k3_eval["bound_ms_dense_flops"],
-                        cases=kern["K3"][1:], cli_launches=cli["launches"][2])),
+                        cases=kern["K3"][1:], cli_launches=cli["launches"][2],
+                        in_train_us=wav_train["profile"]["k3_us_per_launch"])),
     ]
     kernels = []
     for i, k in enumerate(common):
@@ -672,7 +1025,11 @@ def main() -> int:
             name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
             launches=path["eval_launches"][i],
             launches_per_eval_batch=path["eval_launches_per_batch"][i],
-            launches_predict=path["predict_launches"][i], max_abs_err=r["max_abs_err"],
+            launches_predict=path["predict_launches"][i],
+            launches_train=train_path[i]["launches_first_epoch"][i],
+            launches_per_train_step=train_path[i]["launches_per_step"][i],
+            launches_per_train_step_in_chunks=accum["launches_per_step"][i],
+            max_abs_err=r["max_abs_err"],
             tolerance=r["tolerance"], ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"], bound_by=r["bound_by"],
             library_ms=k["library_ms"], launch_floor_ms=kern["launch_floor_ms"],

@@ -116,8 +116,9 @@ def jax_variables(jexp, jmdl, feat_shape, seed=0):
     U(+-1/sqrt(fan_in)), biases U(+-0.1), and BatchNorm statistics and
     affines randomized so that eval BN (and its fold) is not the identity."""
     opt = make_optimizer(1e-3, (), 0.5, 1)
+    views = 4 if jexp.input_type == "spec" and jexp.specaug_params.use else 1  # as the Trainer makes them
     state = jax.eval_shape(
-        lambda k: create_train_state(k, jexp, jmdl, feat_shape, opt, v_support=4, v_query=4)[1],
+        lambda k: create_train_state(k, jexp, jmdl, feat_shape, opt, v_support=views, v_query=views)[1],
         jax.random.PRNGKey(seed),
     )
     rng = np.random.default_rng(seed)

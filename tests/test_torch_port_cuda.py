@@ -239,3 +239,44 @@ def test_wav_eval_path_launches_mel_and_head_kernels(cuda):
     result = trainer.test()
     assert 0.0 <= result["mean_accuracy"] <= 1.0
     assert tuple(k.launches for k in kernels) == (2, 2, 0)  # per batch: K3 1, K2 1, K1 0
+
+
+@pytest.mark.parametrize("e", [1, 4])
+def test_k2_closed_form_backward_matches_autograd_on_card(cuda, e):
+    """K2's backward (the closed-form VJP, never the plain forward) against
+    autograd through the plain version, atol 1e-5, at the train step's head:
+    support and queries slices of one [E, S+Q, 4x64] tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    fused = torch.randn((e, 50, 256), generator=gen, device=cuda)
+    lab = torch.arange(5, device=cuda).repeat_interleave(5).expand(e, -1)
+    cot = torch.randn((e, 25, 5), generator=gen, device=cuda)
+    ours, plain = fused.clone().requires_grad_(True), fused.clone().requires_grad_(True)
+    before = protohead.episode_scores_cuda.launches
+    protohead.batched_episode_scores(ours[:, :25], lab, ours[:, 25:], 5).backward(cot)
+    assert protohead.episode_scores_cuda.launches == before + 1  # the forward only
+    protohead.batched_episode_scores_reference(plain[:, :25], lab, plain[:, 25:], 5).backward(cot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ours.grad, plain.grad, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("microbatch", [None, 1])
+def test_train_step_launches_k1_and_k2_per_chunk(cuda, microbatch):
+    rng = np.random.default_rng(12)
+    items = rng.standard_normal((6 * 5, 96, 99)).astype(np.float32)
+    store = PackedStore.pack(list(items), np.repeat(np.arange(6), 5), device=cuda)
+    exp = ExperimentConfig.from_dict({
+        "specaug_params": {"use": True}, "n_training_tasks": 4,
+        "n_way_train": 3, "n_shot_train": 2, "n_query_train": 2,
+        "loss": {"cpl": {"use": True, "m_param": 2, "t_param": 2.0}},
+        "tpu": {"episode_batch": 2, "episode_microbatch": microbatch},
+    })
+    mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8},
+                                 "Attention": {"embed_dim": 64, "ffn_dim": 64}})
+    trainer = Trainer(exp, mdl, store)
+    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = 0
+    out = trainer.train_epoch()
+    chunks = 2 if microbatch else 1
+    assert all(np.isfinite(out[k]) for k in ("loss", "fsl_loss", "cpl_loss"))
+    # 2 steps: K1 twice (support, queries) and K2 once per chunk
+    assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (
+        4 * chunks, 2 * chunks)

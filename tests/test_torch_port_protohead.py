@@ -64,11 +64,10 @@ def test_prototypes_match_jax_with_empty_and_foreign_labels():
     assert not got[1].any() and not got[3].any()
 
 
-def test_fused_scores_gradients_match_jax_grad(monkeypatch):
-    """The autograd.Function's backward (autograd through the plain version)
-    against jax.grad of the XLA head, atol 1e-4. Its forward is the CUDA
-    kernel; on the CPU the plain version stands in for it."""
-    monkeypatch.setattr(tph, "episode_scores_cuda", tph.batched_episode_scores_reference)
+def test_fused_scores_gradients_match_jax_grad():
+    """The autograd.Function's backward (the closed-form VJP) against
+    jax.grad of the XLA head, atol 1e-4. Its forward is the CUDA kernel; on
+    the CPU it takes the plain version."""
     sup, labels, qry, n = _episode(seed=3)
     cot = np.random.default_rng(4).standard_normal((3, 7, n)).astype(np.float32)
 
