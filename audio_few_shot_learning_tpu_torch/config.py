@@ -14,11 +14,11 @@ This is the PyTorch package's own copy of the JAX package's schema: same
 keys, same defaults, pure Python. The ``tpu.*`` block is parsed unchanged so
 one JSON file drives both packages; here ``episode_batch``,
 ``episode_microbatch``, ``eval_episode_batch``, ``compute_dtype``, ``remat``,
-``store_dtype``, ``fold_bn_eval``, ``seed`` and ``num_runs`` take effect,
-``host_store: true`` and ``bn_per_view_group: true`` raise (later slices),
-and the keys that name TPU machinery (``use_pallas``, ``mesh_shape``,
-``eval_segment_budget``) are accepted and inert. ``device`` selects the card
-(anything but ``"cpu"``) or the CPU.
+``store_dtype``, ``fold_bn_eval``, ``eval_segment_budget``, ``seed`` and
+``num_runs`` take effect, ``host_store: true`` and ``bn_per_view_group:
+true`` raise (later slices), and the keys that name TPU machinery
+(``use_pallas``, ``mesh_shape``) are accepted and inert. ``device`` selects
+the card (anything but ``"cpu"``) or the CPU.
 """
 
 from __future__ import annotations
@@ -154,10 +154,9 @@ class TPUConfig:
     # ~5% faster on the v5e (BASELINE.md).
     remat: Optional[bool] = None
     # Multi-segment eval memory budget in "segment-episodes" (eval batch x
-    # store.s_max). None = derive from the device's reported HBM and the
-    # store's feature size, anchored at the measured 36 on a 16 GB v5e with
-    # 128x157 features (96 OOMed). Set explicitly to lower it for bigger
-    # models or raise it on bigger chips without touching engine code.
+    # store.s_max). None = reckon the eval batch from the card's free memory
+    # (train/engine.py::multisegment_eval_batch). Set explicitly to lower it
+    # for bigger models without touching engine code.
     eval_segment_budget: Optional[int] = None
     store_dtype: str = "float32"
     # Keep the packed split in host RAM and stream sampled episode batches to

@@ -12,7 +12,9 @@ Layout (flat, no padding):
   class_table  [C, M_max]  item indices per class (padded)
   class_counts [C]         real items per class
 
-``dtype="bfloat16"`` halves the footprint; compute upcasts per op. Index
+The flat layout matters for the variable-length datasets: a BirdClef item
+holds 1-36 segments, and a padded ``[I, S_max, F, T]`` array would be
+several times the data. ``dtype="bfloat16"`` halves the footprint; compute upcasts per op. Index
 tensors are int64 (torch's native index type).
 """
 
@@ -62,6 +64,13 @@ class PackedStore:
     def get_segment(self, item: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """Segment ``seg`` of item ``item`` (any matching shapes ``[...]``) -> ``[..., F, T]``."""
         return self.segments[self.seg_offsets[item] + seg]
+
+    def item_segment_rows(self, item: torch.Tensor, s_max: int) -> torch.Tensor:
+        """Rows of the first ``s_max`` segments of each item (``[...]`` ->
+        ``[..., s_max]``), clipped to the item's last real segment; mask
+        with ``seg_counts`` downstream."""
+        seg = torch.arange(s_max, device=item.device)
+        return self.seg_offsets[item][..., None] + torch.minimum(seg, self.seg_counts[item][..., None] - 1)
 
     @staticmethod
     def from_flat_arrays(

@@ -18,8 +18,13 @@ the dropout masks as data.
 
 Evaluation: every eval batch samples E episodes, makes the views, runs the
 model in eval mode and scores the argmax, with no host synchronization
-until the accuracies of the whole run are read back. ``predict_episode``
-runs the same pipeline on one caller-supplied episode.
+until the accuracies of the whole run are read back. Multi-segment
+evaluation (``multisegment=True``; ``test()`` with ``multi_segm``) scores
+every segment of each query item and takes the majority vote of its real
+segments (``train/evaluate.py``); since an episode then carries
+``s_max`` times the query rows, E is cut to what the card's free memory
+holds (``multisegment_eval_batch``). ``predict_episode`` runs the same
+pipeline on one caller-supplied episode.
 
 Wav-input configs (``input_type: "wav"``) sample raw waveforms from a
 ``PackedWavStore`` instead; support and queries of the whole batch go
@@ -28,8 +33,8 @@ z-norm, and then through the same model, one view per item.
 
 The engine runs on the card unless the caller asks for the CPU, through
 ``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
-such request it raises. WaveAugment, multi-segment evaluation and the
-``bn_per_view_group`` knob come with later slices.
+such request it raises. WaveAugment and the ``bn_per_view_group`` knob
+come with later slices.
 """
 
 from __future__ import annotations
@@ -43,21 +48,77 @@ import torch
 import torch.nn.functional as F
 
 from audio_few_shot_learning_tpu_torch.config import HOP_LENGTH, N_MELS, ExperimentConfig, ModelConfig
-from audio_few_shot_learning_tpu_torch.data.episodes import (
-    EpisodeBatch,
-    sample_episode,
-    sample_wav_episode,
-)
+from audio_few_shot_learning_tpu_torch.data.episodes import EpisodeBatch, sample_episode
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
+from audio_few_shot_learning_tpu_torch.device import resolve_device
 from audio_few_shot_learning_tpu_torch.losses import angular_loss, cpl_loss, fsl_loss
+from audio_few_shot_learning_tpu_torch.models.encoders import torch_dtype
 from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
 from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
 from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
+from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy
 from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
 
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
 METRIC_NAMES = ("loss", "fsl_loss", "cpl_loss")
+
+# Multi-segment eval batch on the card. Block 0's conv output (channels x
+# F x T in the compute dtype per encoder item, 2.57 MB in bf16 at 128x157)
+# is the largest activation of an eval batch. chip_smoke.py measures the
+# peak of allocated memory over one batch against it on an NVIDIA H100 80GB
+# HBM3 at 700 W: 1.62-1.63 x for the flagship and plain spec configs at
+# s_max 6 and 36, 1.75 x for wav (its log-mel front), at E = 3-16. E is the
+# number of episodes whose EVAL_PEAK_FACTOR x block-0 bytes fill
+# EVAL_MEMORY_SHARE of the free memory; chip_smoke.py holds each batch's
+# peak below both.
+EVAL_PEAK_FACTOR = 1.8
+EVAL_MEMORY_SHARE = 0.8
+# Where the device reports no memory (the CPU), the JAX package's rule:
+# 36 segment-episodes of 128x157 store rows, scaled by the store's row size.
+CPU_SEGMENT_BUDGET, CPU_BUDGET_ROW = 36, 128 * 157
+
+
+def multisegment_eval_batch(
+    batch: int,
+    s_max: int,
+    episode_bytes: int,
+    free_bytes: Optional[int],
+    row_elems: int,
+    budget: Optional[int] = None,
+) -> int:
+    """Episodes per multi-segment eval batch, at most ``batch``.
+
+    ``budget`` (``tpu.eval_segment_budget``, in segment-episodes) wins:
+    ``budget // s_max``. On the card: ``EVAL_MEMORY_SHARE * free_bytes``
+    over ``EVAL_PEAK_FACTOR * episode_bytes`` (block 0's output of one
+    episode, ``eval_episode_bytes``). With no memory to read
+    (``free_bytes`` None): the JAX package's segment budget for store rows
+    of ``row_elems`` elements."""
+    if budget is not None:
+        return max(1, min(batch, max(1, budget) // max(s_max, 1)))
+    if free_bytes is None:
+        seg_budget = max(1, int(CPU_SEGMENT_BUDGET * CPU_BUDGET_ROW / max(row_elems, 1)))
+        return max(1, min(batch, seg_budget // max(s_max, 1)))
+    fit = int(EVAL_MEMORY_SHARE * free_bytes // (EVAL_PEAK_FACTOR * max(episode_bytes, 1)))
+    return max(1, min(batch, fit))
+
+
+def eval_episode_bytes(
+    n_support: int,
+    n_query_rows: int,
+    v_support: int,
+    v_query: int,
+    channels: int,
+    feat_shape: Tuple[int, int],
+    compute_dtype: str,
+) -> int:
+    """Bytes of block 0's conv output over one eval episode: every
+    (item, view) the encoder takes, ``channels x F x T`` in the compute dtype.
+    A wav episode counts its log-mel's shape, not its waveform's."""
+    items = n_support * v_support + n_query_rows * v_query
+    itemsize = torch.empty((), dtype=torch_dtype(compute_dtype)).element_size()
+    return items * channels * feat_shape[0] * feat_shape[1] * itemsize
 
 
 def _slice_tree(obj, sl: slice):
@@ -108,18 +169,12 @@ class _StepClock:
         return [1e3 * (b - a) for a, b in pairs]
 
 
-def resolve_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
+def config_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
     """``device`` if given, else the CPU when the config says ``"cpu"``, else
-    the card. Raises rather than running on the CPU when no card is present."""
+    the card ``exp.gpu_index``; raises as ``resolve_device`` does."""
     if device is None:
         device = "cpu" if exp.device == "cpu" else f"cuda:{exp.gpu_index}"
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' or set \"device\": \"cpu\" "
-            "in the experiment config to run on the CPU"
-        )
-    return device
+    return resolve_device(device)
 
 
 class Trainer:
@@ -142,7 +197,7 @@ class Trainer:
             raise NotImplementedError("tpu.bn_per_view_group is a later slice of the port")
         self.exp = exp
         self.mdl = mdl
-        self.device = resolve_device(exp, device)
+        self.device = config_device(exp, device)
         self.train_store = train_store
         self.val_store = val_store
         self.test_store = test_store
@@ -161,19 +216,20 @@ class Trainer:
         if self.is_wav:
             # the reference's on-device torchaudio MelSpectrogram + 10*log10
             self.mel = MelSpec(flavor="online")
-            feat_shape = (N_MELS, 1 + train_store.seg_len // HOP_LENGTH)
+            self.feat_shape = (N_MELS, 1 + train_store.seg_len // HOP_LENGTH)
         else:
-            feat_shape = tuple(train_store.feat_shape)
+            self.feat_shape = tuple(train_store.feat_shape)
 
         seed = exp.tpu.seed if seed is None else seed
         with torch.random.fork_rng(devices=[]):  # seeded torch-default init
             torch.manual_seed(seed)
-            model = FewShotEpisodeModel(exp, mdl, feat_shape)
+            model = FewShotEpisodeModel(exp, mdl, self.feat_shape)
         self.model = model.to(self.device).eval()
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.optimizer = make_optimizer(self.model.parameters(), exp.lr)
         self.step = 0  # optimizer updates taken; drives the schedule
         self.last_eval_seconds: Optional[float] = None
+        self.last_eval_batch: Optional[int] = None
         self.last_epoch_seconds: Optional[float] = None
         self.last_step_ms: List[float] = []
 
@@ -296,13 +352,12 @@ class Trainer:
         """``steps_per_epoch`` steps of ``episode_batch`` episodes sampled from
         the train store; the metrics are read back once, at the end."""
         exp = self.exp
-        sampler = sample_wav_episode if self.is_wav else sample_episode
         clock = _StepClock(self.device)
         per_step = []
         t0 = time.perf_counter()
         clock.mark()
         for _ in range(self.steps_per_epoch):
-            ep = sampler(
+            ep = sample_episode(
                 self.gen, self.train_store, exp.n_way_train, exp.n_shot_train,
                 exp.n_query_train, self.episode_batch,
             )
@@ -359,12 +414,70 @@ class Trainer:
         augment_query: bool,
         draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
         store: Optional[PackedWavStore] = None,
+        multisegment: bool = False,
+        tie_strategy: str = "",
+        s_max: int = 1,
     ) -> torch.Tensor:
-        """Accuracy per episode ``[E]`` (single segment)."""
+        """Accuracy per episode ``[E]``: of every query row, or with
+        ``multisegment`` of the majority votes over each query item's
+        ``s_max`` rows (``vote_accuracy``)."""
         scores = self._episode_scores(ep, n_way, augment_query, self.gen, draws, store)
+        if multisegment:
+            return self.vote_accuracy(scores, ep, n_way, tie_strategy, s_max)
         tile = 1 if self.exp.use_attention else self._v_query(augment_query)
         q_labels = ep.query_labels.repeat(1, tile)
         return (scores.argmax(dim=-1) == q_labels).to(torch.float32).mean(dim=-1)
+
+    @staticmethod
+    def vote_accuracy(
+        scores: torch.Tensor, ep: EpisodeBatch, n_way: int, tie_strategy: str, s_max: int
+    ) -> torch.Tensor:
+        """Majority-vote accuracy per episode ``[E]`` from the scores of a
+        multi-segment episode batch, query-major ``Q x s_max`` rows. Without
+        attention and with augmented queries the scores hold ``Q * s_max``
+        rows per view, view-major; the vote reads the original view's block
+        only, as the reference's audio_ids are never tiled
+        (loops/loops.py:257-277). A batch with no ``query_mask`` counts
+        every row as real."""
+        e, qtot = ep.query.shape[:2]
+        q = qtot // s_max
+        first = scores[:, :qtot]
+        preds = first.argmax(dim=-1).reshape(e, q, s_max)
+        posts = first.amax(dim=-1).reshape(e, q, s_max)
+        mask = torch.ones_like(posts) if ep.query_mask is None else ep.query_mask.reshape(e, q, s_max)
+        true = ep.query_labels.reshape(e, q, s_max)[:, :, 0]
+        return majority_vote_accuracy(preds, posts, mask, true, n_way, tie_strategy)
+
+    def eval_batch_size(
+        self,
+        store: Union[PackedStore, PackedWavStore],
+        n_tasks: int,
+        n_way: int,
+        k_shot: int,
+        k_query: int,
+        augment_query: bool,
+        multisegment: bool,
+    ) -> int:
+        """Episodes per eval batch: ``eval_episode_batch`` (at most
+        ``n_tasks``), cut for multi-segment eval to ``multisegment_eval_batch``
+        of the memory free now: what the card reports free plus what the
+        caching allocator holds unused."""
+        batch = min(self.eval_episode_batch, n_tasks)
+        if not multisegment:
+            return batch
+        free = None
+        if self.device.type == "cuda":
+            free = (torch.cuda.mem_get_info(self.device)[0] + torch.cuda.memory_reserved(self.device)
+                    - torch.cuda.memory_allocated(self.device))
+        episode = eval_episode_bytes(
+            n_way * k_shot, n_way * k_query * store.s_max, self.v_support,
+            self._v_query(augment_query), self.mdl.hybrid.hidden_channels, self.feat_shape,
+            self.exp.tpu.compute_dtype,
+        )
+        return multisegment_eval_batch(
+            batch, store.s_max, episode, free, int(np.prod(store.feat_shape)),
+            self.exp.tpu.eval_segment_budget,
+        )
 
     @torch.inference_mode()
     def evaluate(
@@ -378,32 +491,35 @@ class Trainer:
         multisegment: bool = False,
         tie_strategy: str = "",
     ) -> Tuple[float, float]:
-        """Mean and std of per-task accuracy over ``n_tasks`` episodes."""
-        if multisegment:
-            raise NotImplementedError("multi-segment evaluation is a later slice of the port")
+        """Mean and std of per-task accuracy over ``n_tasks`` episodes; with
+        ``multisegment``, of the majority votes of each query item's
+        segments under ``tie_strategy``. The accuracies are read back once,
+        at the end; ``last_eval_batch`` holds the episodes per batch."""
         self.model.eval()
         eligible = int((store.class_counts >= k_shot + k_query).sum())
         if eligible < n_way:
             raise ValueError(
                 f"only {eligible} classes have {k_shot + k_query} items; {n_way}-way needs {n_way}"
             )
-        batch = min(self.eval_episode_batch, n_tasks)
+        batch = self.eval_batch_size(store, n_tasks, n_way, k_shot, k_query, augment_query, multisegment)
+        self.last_eval_batch = batch
         t0 = time.perf_counter()
         accs = []
         remaining = n_tasks
-        sampler = sample_wav_episode if self.is_wav else sample_episode
-        while remaining > 0:
-            ep = sampler(self.gen, store, n_way, k_shot, k_query, batch)
-            accs.append(self._eval_episodes(ep, n_way, augment_query, store=store))
-            remaining -= batch
-        acc = torch.cat(accs)[:n_tasks].cpu().numpy()
+        while remaining > 0:  # the last batch takes what remains
+            size = min(batch, remaining)
+            ep = sample_episode(self.gen, store, n_way, k_shot, k_query, size, is_test=multisegment)
+            accs.append(self._eval_episodes(
+                ep, n_way, augment_query, store=store, multisegment=multisegment,
+                tie_strategy=tie_strategy, s_max=store.s_max,
+            ))
+            remaining -= size
+        acc = torch.cat(accs).cpu().numpy()
         self.last_eval_seconds = time.perf_counter() - t0
         return float(acc.mean()), float(acc.std())
 
     def test(self) -> Dict[str, float]:
         exp = self.exp
-        if exp.multi_segm:
-            raise NotImplementedError("multi-segment test is a later slice of the port")
         mean, std = self.evaluate(
             self.test_store,
             n_tasks=exp.n_testing_tasks,
@@ -411,6 +527,8 @@ class Trainer:
             k_shot=exp.n_shot_test,
             k_query=exp.n_query_test,
             augment_query=exp.test_query_augmentations,
+            multisegment=exp.multi_segm,
+            tie_strategy=exp.tie_strategy,
         )
         return {"mean_accuracy": mean, "accuracy_std": std}
 

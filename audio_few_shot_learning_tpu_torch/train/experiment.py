@@ -25,7 +25,7 @@ from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConf
 from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split
 from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
 from audio_few_shot_learning_tpu_torch.train.early_stopping import EarlyStopping
-from audio_few_shot_learning_tpu_torch.train.engine import Trainer, resolve_device
+from audio_few_shot_learning_tpu_torch.train.engine import Trainer, config_device
 from audio_few_shot_learning_tpu_torch.utils import EpisodeThroughput, MetricsLogger
 
 
@@ -119,7 +119,7 @@ def run_experiment(
 ) -> List[Dict]:
     """The reference flow: load the three splits, then ``num_runs`` x (train
     -> test); writes ``config.json`` and ``result_run{i}.json``."""
-    device = resolve_device(exp, device)
+    device = config_device(exp, device)
     dataset_path = os.path.join(exp.data_root, exp.dataset_name)
     log_fn(f"Loading Dataset:::  {exp.dataset_name}, Device:::  {device}")
     train_store = load_packed_split(exp, dataset_path, "train", device)

@@ -64,13 +64,46 @@ Imports nothing of JAX or of the JAX package. In order it:
    views, view permutations and CPL draws given as data and every dropout
    at p = 0 on both copies: loss, every gradient and every parameter after
    the Adam step compared;
-14. ``cli.train_test`` phase: a 15-class 128x157 dataset written by the
+14. multi-segment kernel cases, run after the phases 15-17 at the eval
+   batch E each of them took: K1 on the flagship's queries at s_max 6 and
+   36 ([E, 150 | 900, 128, 157]), K2 at 150 and 900 query rows (flagship
+   D 256, wav and plain D 64), K3 at the wav multi-segment eval batch
+   (M = E x 25 x 7 x 157) and a 36-segment file, each against its plain
+   version and timed as in 3;
+15. multi-segment spec phases, ``configs/birdclef_{cpl,plain}.json`` as
+   shipped (bf16): ``Trainer.test()`` with ``multi_segm`` on a seeded store
+   of 35 classes x 40 items of 1-6 segments (flagship, 64 tasks, then the
+   other two tie strategies over 16 tasks each), and on 12 classes x 10
+   items of 1-36 segments (flagship and plain, 16 tasks, ``max_posterior``).
+   Each prints the eval batch E the engine reckoned from the free memory,
+   the peak of allocated memory over one batch (held below the engine's
+   ``EVAL_PEAK_FACTOR`` x the reckoned block-0 bytes and its
+   ``EVAL_MEMORY_SHARE`` of the free memory), episodes/s (median of 3 runs
+   of 4 full batches) and a profiler pass; launches per batch K1 2, K2 1,
+   K3 0 (plain: 0, 1, 0);
+16. multi-segment card-vs-CPU phase: one float32 batch at E=2, s_max 6,
+   same weights, episode and draws: scores within 1e-3, argmax agreement
+   >= 99%, and the card's votes equal to the reference's host loop on the
+   card's scores, exactly, for all three tie strategies;
+17. multi-segment wav phase: the same on a seeded ``PackedWavStore`` of 35
+   classes x 20 clips of 1-30 s (5-s segments, s_max 6): launches per
+   batch K1 0, K2 1, K3 1, then card vs CPU at E=2;
+18. ``cli.train_test`` phase: a 15-class 128x157 dataset written by the
    port's ``make_synthetic_dataset`` (5 classes per split, 5-way on each),
    1 run of 2 epochs x 16 tasks, 32 test tasks; ``result_run0.json`` must
    exist and its accuracy exceed 0.4 (5-way chance 0.2);
-15. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+19. preprocessing phase: a seeded class-foldered ``.wav`` tree (15 classes
+   x 12 clips of 1-20 s, a tone per class in noise) through
+   ``wav_dir_to_npy`` -> ``npy_dir_to_var_spec`` (one K3 launch per file)
+   -> ``compute_global_norm`` -> ``make_splits(counts=(5, 5, 5))`` ->
+   ``compute_waveform_norm``, then ``cli.train_test`` on it with the
+   flagship multi-segment config (accuracy above 0.4), and
+   ``npy_dir_to_spec`` on fixed 5-s clips against K3's plain version;
+20. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
-Any failure raises and exits non-zero. Exits non-zero without a result when
+The list goes by topic; ``main`` runs the spec phases first, then the wav
+phases (one waveform store on the card at a time), then the CLIs and the
+preprocessing. Any failure raises and exits non-zero. Exits non-zero without a result when
 no CUDA device is present.
 """
 
@@ -99,7 +132,11 @@ EVAL_BATCH = 16
 TEST_TASKS = 64
 # launches of K1, K2, K3 per eval batch, per prediction and per train step (or chunk)
 SPEC_LAUNCHES = [2, 1, 0]
+PLAIN_LAUNCHES = [0, 1, 0]  # no SpecAugment
 WAV_LAUNCHES = [0, 1, 1]
+MULTISEG_TIE_TASKS = 16  # per other tie strategy
+S36_TASKS = 16
+TIMED_BATCHES, TIMED_RUNS = 4, 3  # multi-segment rates: full batches per run, runs
 TRAIN_TASKS = 32
 K2_BWD_ATOL = 1e-5  # closed form vs autograd through the plain version, both f32
 TRAIN_LOSS_RTOL = 1e-4
@@ -219,6 +256,11 @@ def device_kernels(fn, attempts: int = 3) -> list:
         if names:
             break
     return names
+
+
+def episode_to_cpu(ep):
+    return type(ep)(**{f.name: None if getattr(ep, f.name) is None else getattr(ep, f.name).cpu()
+                       for f in dataclasses.fields(ep)})
 
 
 def launch_floor_ms(dev) -> float:
@@ -454,6 +496,19 @@ def train_exp(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, **tpu):
     return ExperimentConfig.from_dict(train_dict(input_type, loss, tasks, **tpu))
 
 
+def multiseg_launches(i, flagship, s36, wav) -> dict:
+    """Kernel ``i``'s launches on the multi-segment paths (total, per batch)."""
+    out = dict(launches_multiseg_s6=flagship["launches"][i],
+               launches_per_multiseg_batch_s6=flagship["launches_per_batch"][i])
+    for name, run in s36.items():
+        out[f"launches_multiseg_s36_{name}"] = run["launches"][i]
+        out[f"launches_per_multiseg_batch_s36_{name}"] = run["launches_per_batch"][i]
+    if wav is not None:
+        out["launches_multiseg_wav"] = wav["launches"][i]
+        out["launches_per_multiseg_batch_wav"] = wav["launches_per_batch"][i]
+    return out
+
+
 def kernel_counters():
     from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
 
@@ -562,7 +617,7 @@ def card_vs_cpu_phase(dev, store, input_type):
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
 
     ep = sample_episode(torch.Generator(device=dev).manual_seed(5), store, N_WAY, K_SHOT, K_QUERY, e)
-    ep_cpu = type(ep)(**{f.name: getattr(ep, f.name).cpu() for f in dataclasses.fields(ep)})
+    ep_cpu = episode_to_cpu(ep)
     draws_card = draws_cpu = None
     if input_type == "spec":
         g = torch.Generator().manual_seed(6)
@@ -699,13 +754,12 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
-    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode, sample_wav_episode
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
     kernels = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=0)
-    sampler = sample_wav_episode if trainer.is_wav else sample_episode
     e = trainer.episode_batch
     chunks = e // (trainer.microbatch or e)
     steps = trainer.steps_per_epoch
@@ -739,7 +793,7 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
 
     def steps_fn():
         for _ in range(profile_steps):
-            trainer.train_step(sampler(trainer.gen, store, N_WAY, K_SHOT, K_QUERY, e))
+            trainer.train_step(sample_episode(trainer.gen, store, N_WAY, K_SHOT, K_QUERY, e))
 
     prof = profile(steps_fn)
     med = float(np.median(step_ms))
@@ -784,7 +838,7 @@ def train_card_vs_cpu_phase(dev, store):
                 m.p = 0.0
 
     ep = sample_episode(torch.Generator(device=dev).manual_seed(5), store, N_WAY, K_SHOT, K_QUERY, 1)
-    ep_cpu = type(ep)(**{f.name: getattr(ep, f.name).cpu() for f in dataclasses.fields(ep)})
+    ep_cpu = episode_to_cpu(ep)
     g = torch.Generator().manual_seed(6)
     draws_cpu = TrainDraws(
         support=draw_views_params(g, exp.specaug_params, 1, N_WAY * K_SHOT, N_MELS, N_FRAMES, "cpu"),
@@ -914,6 +968,414 @@ def train_cli_phase():
     return dict(result=result, results=results, wall_s=seconds, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# multi-segment evaluation and preprocessing
+# ---------------------------------------------------------------------------
+
+
+def multiseg_kernel_cases(dev, e_flag6, e_flag36, e_plain36, e_wav):
+    """K1, K2 and K3 at the shapes the multi-segment phases gave them, with
+    each phase's eval batch E as the engine reckoned it, each against its
+    plain version and timed as in the kernel phase: K1 on the flagship's
+    queries at s_max 6 ([E, 150, 128, 157] f32) and 36 ([E, 900, 128, 157]);
+    K2 at Q = 25 x 6 = 150 (flagship D 256, wav D 64) and 25 x 36 = 900
+    (flagship D 256, plain D 64); K3 at the wav eval batch at s_max 6
+    (M = E x 25 x 7 x 157, online) and at a 36-segment file (M = 5 652,
+    offline)."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import SpecAugParams
+    from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = {}
+    params = SpecAugParams(use=True, mask_param=6, W=29, num_mask=1, mask_value=0.0, p=0.298)
+    k1 = []
+    for e, s_max in ((e_flag6, 6), (e_flag36, 36)):
+        b = N_WAY * K_QUERY * s_max
+        spec = torch.randn((e, b, N_MELS, N_FRAMES), generator=gen, device=dev)
+        ys, tm, fm = specaugment.draw_views_params(gen, params, e, b, N_MELS, N_FRAMES, dev)
+        args = (spec, ys, tm, fm, params.mask_value)
+        out = specaugment.views_cuda(*args)
+        ref = specaugment.views_reference(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= K1_TOL_F32:
+            raise AssertionError(f"K1 at [{e}, {b}, {N_MELS}, {N_FRAMES}] disagrees with its plain version: {err}")
+        b_ms, b_by = bound_ms(nbytes(spec, ys, tm, fm) + nbytes(out), 3 * out.numel() / 4)
+        k1.append(dict(case=f"flagship queries E={e} s_max {s_max}", shape=list(spec.shape), max_abs_err=err,
+                       tolerance=K1_TOL_F32, ms=graph_ms(lambda: specaugment.views_cuda(*args)),
+                       plain_ms=graph_ms(lambda: specaugment.views_reference(*args)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del spec, out, ref, args
+    rows["K1"] = k1
+
+    k2 = []
+    s = N_WAY * K_SHOT
+    lab_np = np.repeat(np.arange(N_WAY), K_SHOT)
+    for e, s_max, d in ((e_flag6, 6, 256), (e_wav, 6, 64), (e_flag36, 36, 256), (e_plain36, 36, 64)):
+        q = N_WAY * K_QUERY * s_max
+        fused = torch.randn((e, s + q, d), generator=gen, device=dev)
+        sup, qry = fused[:, :s], fused[:, s:]
+        lab = torch.as_tensor(lab_np, device=dev).expand(e, -1)
+        out = protohead.episode_scores_cuda(sup, lab, qry, N_WAY)
+        ref = protohead.batched_episode_scores_reference(sup, lab, qry, N_WAY)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not torch.allclose(out, ref, atol=K2_ATOL, rtol=K2_RTOL):
+            raise AssertionError(f"K2 at E={e} Q={q} D={d} disagrees with its plain version: {err}")
+        plan = protohead.head_plan(e, s, q, d, N_WAY)
+        protos = protohead.compute_prototypes(sup, lab, N_WAY)
+        flops = e * (s * d + q * N_WAY * 2 * d + q * 2 * d + N_WAY * 3 * d)
+        b_ms, b_by = bound_ms(nbytes(sup, qry, out) + lab.untyped_storage().nbytes(), flops)
+        k2.append(dict(
+            case=f"E={e} Q={q} D={d}", e=e, q=q, d=d, blocks=plan.blocks, q_tile=plan.q_tile,
+            max_abs_err=err, tolerance=[K2_ATOL, K2_RTOL],
+            ms=graph_ms(lambda: protohead.episode_scores_cuda(sup, lab, qry, N_WAY)),
+            plain_ms=graph_ms(lambda: protohead.batched_episode_scores_reference(sup, lab, qry, N_WAY)),
+            library_ms=graph_ms(lambda: torch.cdist(qry, protos)), bound_ms=b_ms, bound_by=b_by,
+        ))
+    rows["K2"] = k2
+
+    k3 = []
+    for case, flavor, clips in (
+        (f"wav eval batch E={e_wav}, s_max 6", "online", e_wav * N_WAY * (K_SHOT + K_QUERY * 6)),
+        ("36-segment file", "offline", 36),
+    ):
+        spec = mel.MelSpec(flavor)
+        wav = 0.3 * torch.randn((clips, CLIP), generator=gen, device=dev)
+        pspec = mel.power_spectrogram(wav, pad_mode=spec.pad_mode)
+        del wav
+        fb = torch.from_numpy(spec.fb).to(dev)
+        bands = mel.band_table(spec.fb).to(dev)
+        args = (pspec, fb, spec.log_mult, spec.eps)
+        out = mel.mel_log_cuda(*args, bands)
+        ref = mel.mel_log_reference(*args).transpose(-1, -2)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= K3_ATOL_DB:
+            raise AssertionError(f"K3 {case} disagrees with its plain version: {err} dB")
+        m = pspec.numel() // N_BINS
+        b_ms, b_by = bound_ms(nbytes(pspec, fb, out), 2 * m * bands.weights.numel())
+        ms = graph_ms(lambda: mel.mel_log_cuda(*args, bands))
+        k3.append(dict(
+            case=case, flavor=flavor, m=m, elements=pspec.numel(), max_abs_err=err,
+            tolerance=K3_ATOL_DB, ms=ms, plain_ms=graph_ms(lambda: mel.mel_log_reference(*args)),
+            library_ms=graph_ms(lambda: torch.log10(torch.matmul(pspec, fb))),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+        ))
+        del pspec, out, ref
+    rows["K3"] = k3
+    torch.cuda.empty_cache()
+    return rows
+
+
+def make_multiseg_store(dev, n_classes, per_class, s_max, seed):
+    """Seeded 128x157 f32 items of 1..s_max segments (item 0 has s_max)."""
+    from audio_few_shot_learning_tpu_torch.data.store import PackedStore
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, s_max + 1, n_classes * per_class)
+    counts[0] = s_max
+    segments = rng.standard_normal((int(counts.sum()), N_MELS, N_FRAMES), dtype=np.float32)
+    labels = np.repeat(np.arange(n_classes), per_class)
+    return PackedStore.from_flat_arrays(segments, counts, labels, n_classes, device=dev)
+
+
+def make_multiseg_wav_store(dev):
+    """35 classes x 20 clips of 1-30 s of seeded noise at 16 kHz, 5-s
+    segments (s_max 6): ~700 MB on the card."""
+    from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
+
+    n_classes, per_class = 35, 20
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(SR, 30 * SR + 1, n_classes * per_class)
+    lengths[0] = 30 * SR
+    clips = [0.3 * rng.standard_normal(int(n), dtype=np.float32) for n in lengths]
+    labels = np.repeat(np.arange(n_classes), per_class)
+    return PackedWavStore.pack(clips, labels, n_classes, mean=WAV_MEAN, std=WAV_STD,
+                               multi_segm=True, device=dev)
+
+
+def birdclef_dict(name, **over):
+    """``configs/birdclef_{cpl,plain}.json`` as shipped, on the card, bf16."""
+    with open(os.path.join(REPO, "configs", f"birdclef_{name}.json")) as f:
+        d = json.load(f)
+    d.update(device="cuda", **over)
+    d.setdefault("tpu", {})
+    d["tpu"].update(eval_episode_batch=EVAL_BATCH, compute_dtype="bfloat16")
+    return d
+
+
+def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_run=True):
+    """``Trainer.test()`` with ``multi_segm`` over ``tasks`` tasks (the
+    config's tie strategy), launches of K1, K2, K3 per eval batch asserted;
+    the eval batch E the engine reckoned from the free memory, and the peak
+    of allocated memory over one batch against the reckoned bytes (it must
+    stay within ``EVAL_PEAK_FACTOR``); with ``tie_tasks``, ``evaluate`` under
+    the other two tie strategies; then TIMED_RUNS runs of TIMED_BATCHES full
+    batches of E for the rate (median) and a profiler pass over one more."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
+    from audio_few_shot_learning_tpu_torch.train import engine
+
+    exp = ExperimentConfig.from_dict({**exp_dict, "n_testing_tasks": tasks})
+    kernels = kernel_counters()
+    trainer = engine.Trainer(exp, ModelConfig(), store, test_store=store, device=dev, seed=0)
+    aug = exp.test_query_augmentations
+    run = dict(n_way=N_WAY, k_shot=K_SHOT, k_query=K_QUERY, augment_query=aug, multisegment=True)
+
+    torch.cuda.synchronize()
+    free_card = torch.cuda.mem_get_info(dev)[0]
+    free = free_card + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    e = trainer.eval_batch_size(store, tasks, N_WAY, K_SHOT, K_QUERY, aug, True)
+    vq = trainer._v_query(aug)
+    episode_bytes = engine.eval_episode_bytes(
+        N_WAY * K_SHOT, N_WAY * K_QUERY * store.s_max, trainer.v_support, vq,
+        trainer.mdl.hybrid.hidden_channels, trainer.feat_shape, exp.tpu.compute_dtype)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.evaluate(store, e, tie_strategy=exp.tie_strategy, **run)  # one batch; warms cuDNN up
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    factor = peak / (e * episode_bytes)
+    if not (trainer.last_eval_batch == e and factor <= engine.EVAL_PEAK_FACTOR
+            and peak <= engine.EVAL_MEMORY_SHARE * free):
+        raise AssertionError(
+            f"eval batch E={trainer.last_eval_batch} (reckoned {e}); its peak {peak / 1e9:.2f} GB is "
+            f"{factor:.3f} x the reckoned block-0 bytes (EVAL_PEAK_FACTOR {engine.EVAL_PEAK_FACTOR}) "
+            f"and {peak / free:.3f} of the free memory (EVAL_MEMORY_SHARE {engine.EVAL_MEMORY_SHARE})")
+
+    for k in kernels:
+        k.launches = 0
+    result = trainer.test()
+    launches = [k.launches for k in kernels]
+    acc = result["mean_accuracy"]
+    if not (np.isfinite(acc) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"multi-segment test accuracy out of range: {result}")
+    n_batches = -(-tasks // trainer.last_eval_batch)
+    per_batch = [n / n_batches for n in launches]
+    if per_batch != expected:
+        raise AssertionError(f"multi-segment eval launched K1, K2, K3 {per_batch} times per batch "
+                             f"({launches} in {n_batches} batches); expected {expected}")
+    # the rate: runs of TIMED_BATCHES full batches of the reckoned E
+    timed = TIMED_BATCHES * e
+    eval_s = []
+    for _ in range(TIMED_RUNS):
+        trainer.evaluate(store, timed, tie_strategy=exp.tie_strategy, **run)
+        if trainer.last_eval_batch != e:
+            raise AssertionError(f"timed run took E={trainer.last_eval_batch}, the first {e}")
+        eval_s.append(trainer.last_eval_seconds)
+    ties = {}
+    others = [t for t in ("", "min_label", "max_posterior") if t != exp.tie_strategy] if tie_tasks else []
+    for tie in others:
+        mean, std = trainer.evaluate(store, tie_tasks, tie_strategy=tie, **run)
+        if not 0.0 <= mean <= 1.0:
+            raise AssertionError(f"{tie!r} vote accuracy out of range: {mean}")
+        ties[tie or '""'] = dict(mean=mean, std=std, tasks=tie_tasks, seconds=trainer.last_eval_seconds)
+    prof = profile(lambda: trainer.evaluate(store, timed, tie_strategy=exp.tie_strategy, **run)) \
+        if profile_run else None
+    eps = [timed / t for t in eval_s]
+    return dict(
+        s_max=store.s_max, tie_strategy=exp.tie_strategy, test=result,
+        eval_batch=trainer.last_eval_batch, free_gb=free / 1e9, free_reported_by_card_gb=free_card / 1e9,
+        episode_block0_gb=episode_bytes / 1e9, peak_over_one_batch_gb=peak / 1e9,
+        peak_factor=factor, peak_factor_limit=engine.EVAL_PEAK_FACTOR, peak_share_of_free=peak / free,
+        share_limit=engine.EVAL_MEMORY_SHARE,
+        launches=launches, launches_per_batch=per_batch, batches=n_batches,
+        timed_tasks=timed, timed_batches=TIMED_BATCHES, eval_seconds=eval_s, eval_episodes_per_s=eps, eval_episodes_per_s_median=float(np.median(eps)),
+        other_tie_strategies=ties, profile=prof,
+    )
+
+
+def multiseg_card_vs_cpu_phase(dev, store, exp_dict, input_type):
+    """One float32 multi-segment eval batch at E=2, same weights, episode
+    and augmentation draws, card (kernels) vs CPU (plain versions): scores
+    within SLICE_ATOL, argmax agreement; and the card's vote accuracies
+    equal, exactly, the reference's host loop on the card's own scores,
+    for every tie strategy."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+    from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy_host
+
+    e = 2
+    d = json.loads(json.dumps(exp_dict))
+    d["tpu"].update(compute_dtype="float32", eval_episode_batch=e)
+    exp = ExperimentConfig.from_dict(d)
+    card = Trainer(exp, ModelConfig(), store, device=dev, seed=3)
+    cpu = Trainer(exp, ModelConfig(), store, device="cpu", seed=3)  # the store only gives shapes
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    ep = sample_episode(torch.Generator(device=dev).manual_seed(5), store, N_WAY, K_SHOT, K_QUERY, e,
+                        is_test=True)
+    ep_cpu = episode_to_cpu(ep)
+    qtot = ep.query.shape[1]
+    draws_card = draws_cpu = None
+    if input_type == "spec":
+        g = torch.Generator().manual_seed(6)
+        draws_cpu = tuple(draw_views_params(g, exp.specaug_params, e, n, N_MELS, N_FRAMES, "cpu")
+                          for n in (N_WAY * K_SHOT, qtot))
+        draws_card = tuple(tuple(x.to(dev) for x in dr) for dr in draws_cpu)
+    aug = exp.test_query_augmentations
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        s_card = card._episode_scores(ep, N_WAY, aug, card.gen, draws_card, store)
+        votes = {tie: Trainer.vote_accuracy(s_card, ep, N_WAY, tie, store.s_max).cpu().numpy()
+                 for tie in ("", "min_label", "max_posterior")}
+        s_card = s_card.cpu()
+        card_s = time.perf_counter() - t0
+        s_cpu = cpu._episode_scores(ep_cpu, N_WAY, aug, cpu.gen, draws_cpu, store)
+    err = (s_card - s_cpu).abs().max().item()
+    agree = (s_card.argmax(-1) == s_cpu.argmax(-1)).float().mean().item()
+    if not (err <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE):
+        raise AssertionError(f"{input_type} multi-segment card vs CPU: max err {err}, argmax agree {agree}")
+    first = s_card[:, :qtot].numpy()
+    mask = ep_cpu.query_mask.numpy() > 0
+    for tie, got in votes.items():
+        want = np.array([
+            majority_vote_accuracy_host(first[i].argmax(-1)[mask[i]], ep_cpu.audio_ids[i].numpy()[mask[i]],
+                                        ep_cpu.query_labels[i].numpy()[mask[i]], first[i].max(-1)[mask[i]], tie)
+            for i in range(e)], np.float32)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"card vote {got} != host oracle {want} for tie strategy {tie!r}")
+    return dict(episodes=e, s_max=store.s_max, query_rows=qtot, max_abs_err=err, atol=SLICE_ATOL,
+                argmax_agree=agree, votes_equal_host_oracle=True,
+                card_votes={k or '""': v.tolist() for k, v in votes.items()}, card_s=card_s)
+
+
+def tone_tree(root, rng):
+    """Class-foldered .wav files: 15 classes x 12 clips of 1-20 s at 16 kHz,
+    each class a tone of its own (and its octave) in noise."""
+    import scipy.io.wavfile
+
+    lengths = []
+    for c in range(15):
+        d = os.path.join(root, f"class{c:02d}")
+        os.makedirs(d)
+        f0 = 150.0 * 1.25 ** c
+        for i in range(12):
+            n = int(rng.integers(SR, 20 * SR + 1))
+            t = np.arange(n) / SR
+            x = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.15 * np.sin(4 * np.pi * f0 * t)
+            x = x + 0.2 * rng.standard_normal(n)
+            scipy.io.wavfile.write(os.path.join(d, f"clip{i:02d}.wav"), SR, (x * 32767 / 1.5).astype(np.int16))
+            lengths.append(n)
+    return lengths
+
+
+def preprocess_phase(dev):
+    """The offline chain on the card on a seeded tone tree: ``wav_dir_to_npy``
+    -> ``npy_dir_to_var_spec`` (one K3 launch per file) -> ``compute_global_norm``
+    -> ``make_splits(counts=(5, 5, 5))`` (5 classes a split: each must hold a
+    5-way episode) -> ``compute_waveform_norm``; then ``cli.train_test`` on
+    the result with the flagship multi-segment config (1 run, 2 epochs x 16
+    tasks, 32 test tasks): ``result_run0.json``'s accuracy must exceed 0.4.
+    Last, ``npy_dir_to_spec`` on 2 classes x 3 fixed 5-s clips, each output
+    against K3's plain version on the same power spectrogram."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.cli import train_test
+    from audio_few_shot_learning_tpu_torch.ops import mel
+    from audio_few_shot_learning_tpu_torch.preprocessing import (
+        compute_global_norm, compute_waveform_norm, make_splits, npy_dir_to_spec,
+        npy_dir_to_var_spec, wav_dir_to_npy,
+    )
+
+    rng = np.random.default_rng(9)
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    out = {}
+    kernels = kernel_counters()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        main_dir = os.path.join(tmp, "tones")
+        lengths = tone_tree(os.path.join(tmp, "audio"), rng)
+        quiet = dict(log_fn=lambda *_: None)
+        t0 = time.perf_counter()
+        n_npy = wav_dir_to_npy(os.path.join(tmp, "audio"), os.path.join(main_dir, "Sorted_npy"), **quiet)
+        t_npy = time.perf_counter() - t0
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        n_spec = npy_dir_to_var_spec(os.path.join(main_dir, "Sorted_npy"), os.path.join(main_dir, "features"),
+                                     device=dev, **quiet)
+        torch.cuda.synchronize()
+        t_spec = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+        if n_npy != len(lengths) or n_spec != n_npy or launches != [0, 0, n_spec]:
+            raise AssertionError(f"to_var_spec wrote {n_spec} of {n_npy} files with K1, K2, K3 launches "
+                                 f"{launches}; expected one K3 launch per file")
+        t0 = time.perf_counter()
+        compute_global_norm(os.path.join(main_dir, "features"), os.path.join(main_dir, "norm_stats", "glob_norm.npy"))
+        make_splits(os.path.join(main_dir, "features"), os.path.join(main_dir, "splits.npy"), counts=(5, 5, 5))
+        wf = compute_waveform_norm(os.path.join(main_dir, "Sorted_npy"),
+                                   os.path.join(main_dir, "norm_stats", "waveform_norm.npy"))
+        t_rest = time.perf_counter() - t0
+        segs = [np.load(os.path.join(main_dir, "features", c, f), mmap_mode="r").shape
+                for c in sorted(os.listdir(os.path.join(main_dir, "features")))
+                for f in os.listdir(os.path.join(main_dir, "features", c))]
+        want_segs = sorted(max(1, -(-n // CLIP)) for n in lengths)
+        if sorted(s[0] for s in segs) != want_segs or {s[1:] for s in segs} != {(N_MELS, N_FRAMES)}:
+            raise AssertionError("to_var_spec wrote unexpected feature shapes")
+        out["preprocess"] = dict(
+            files=n_spec, audio_s=sum(lengths) / SR, segments=int(sum(want_segs)), s_max=max(want_segs),
+            wav_dir_to_npy_s=t_npy, to_var_spec_s=t_spec, to_var_spec_files_per_s=n_spec / t_spec,
+            norms_and_splits_s=t_rest, to_var_spec_launches=launches, waveform_norm=wf.tolist(),
+        )
+
+        d = birdclef_dict("cpl", dataset_name="tones", data_root=tmp, n_training_tasks=16,
+                          n_testing_tasks=32, num_epochs=2, experiment_folder="smoke", patience=5)
+        d["tpu"]["num_runs"] = 1
+        with open(os.path.join(tmp, "exp.json"), "w") as f:
+            json.dump(d, f)
+        with open(os.path.join(tmp, "mdl.json"), "w") as f:
+            json.dump({}, f)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_test.main(["-e", os.path.join(tmp, "exp.json"), "-m", os.path.join(tmp, "mdl.json"),
+                             "--experiments-root", os.path.join(tmp, "experiments")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = [k.launches for k in kernels]
+        path = os.path.join(tmp, "experiments", "smoke", "result_run0.json")
+        if not os.path.exists(path):
+            raise AssertionError("cli.train_test wrote no result_run0.json")
+        with open(path) as f:
+            result = json.load(f)
+        if not result["mean_accuracy"] > 0.4:
+            raise AssertionError(f"cli.train_test on the preprocessed set: accuracy {result} is not above 0.4")
+        out["train_test"] = dict(result=result, wall_s=cli_s, launches=cli_launches)
+
+        fixed_npy, fixed_spec = os.path.join(tmp, "fixed_npy"), os.path.join(tmp, "fixed_spec")
+        for c in range(2):
+            os.makedirs(os.path.join(fixed_npy, f"c{c}"))
+            for i in range(3):
+                np.save(os.path.join(fixed_npy, f"c{c}", f"{i}.npy"), 0.3 * rng.standard_normal(CLIP, dtype=np.float32))
+        for k in kernels:
+            k.launches = 0
+        n_fixed = npy_dir_to_spec(fixed_npy, fixed_spec, sample_length=5, device=dev, **quiet)
+        spec_launches = [k.launches for k in kernels]
+        offline = mel.MelSpec("offline")
+        fb = torch.from_numpy(offline.fb).to(dev)
+        worst = 0.0
+        for c in range(2):
+            wav = torch.from_numpy(np.stack([np.load(os.path.join(fixed_npy, f"c{c}", f"{i}.npy"))
+                                             for i in range(3)])).to(dev)
+            pspec = mel.power_spectrogram(wav, pad_mode=offline.pad_mode)
+            ref = mel.mel_log_reference(pspec, fb, offline.log_mult, offline.eps).transpose(-1, -2).cpu().numpy()
+            for i in range(3):
+                worst = max(worst, float(np.abs(np.load(os.path.join(fixed_spec, f"c{c}", f"{i}.npy")) - ref[i]).max()))
+        if n_fixed != 6 or spec_launches != [0, 0, 2] or not worst <= K3_ATOL_DB:
+            raise AssertionError(f"npy_dir_to_spec wrote {n_fixed} files in {spec_launches} launches, "
+                                 f"{worst} dB off K3's plain version")
+        out["to_spec"] = dict(files=n_fixed, launches=spec_launches, max_abs_err_db=worst, tolerance=K3_ATOL_DB)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -970,6 +1432,26 @@ def main() -> int:
     print("train step card vs CPU: " + json.dumps(train_cmp), flush=True)
     del store
 
+    ms_store = make_multiseg_store(dev, 35, 40, 6, seed=1)
+    print(f"multi-segment store: {ms_store.segments.numel() * 4 / 1e6:.1f} MB, s_max {ms_store.s_max}",
+          flush=True)
+    ms_flag = multiseg_phase(dev, ms_store, birdclef_dict("cpl"), SPEC_LAUNCHES, TEST_TASKS,
+                             tie_tasks=MULTISEG_TIE_TASKS)
+    print(f"multi-segment spec phase, flagship, s_max 6 ({card}): " + json.dumps(ms_flag), flush=True)
+    t0 = time.perf_counter()
+    ms_cmp = multiseg_card_vs_cpu_phase(dev, ms_store, birdclef_dict("cpl"), "spec")
+    ms_cmp["seconds"] = time.perf_counter() - t0
+    print("multi-segment spec card vs CPU: " + json.dumps(ms_cmp), flush=True)
+    del ms_store
+    s36_store = make_multiseg_store(dev, 12, 10, 36, seed=2)
+    print(f"s_max 36 store: {s36_store.segments.numel() * 4 / 1e6:.1f} MB", flush=True)
+    s36 = {}
+    for name, launches in (("cpl", SPEC_LAUNCHES), ("plain", PLAIN_LAUNCHES)):
+        s36[name] = multiseg_phase(dev, s36_store, birdclef_dict(name, tie_strategy="max_posterior"),
+                                   launches, S36_TASKS)
+        print(f"multi-segment spec phase, {name}, s_max 36 ({card}): " + json.dumps(s36[name]), flush=True)
+    del s36_store
+
     t0 = time.perf_counter()
     wav_store = make_wav_store(dev)
     print(f"wav store: {wav_store.nbytes() / 1e6:.1f} MB on the card, packed in "
@@ -986,10 +1468,29 @@ def main() -> int:
     print(f"wav train phase ({card}): " + json.dumps(wav_train), flush=True)
     del wav_store
 
+    t0 = time.perf_counter()
+    mw_store = make_multiseg_wav_store(dev)
+    print(f"multi-segment wav store: {mw_store.nbytes() / 1e6:.1f} MB on the card, s_max "
+          f"{mw_store.s_max}, packed in {time.perf_counter() - t0:.1f} s", flush=True)
+    mw_dict = flagship_dict("wav")
+    mw_dict["multi_segm"] = True
+    mw = multiseg_phase(dev, mw_store, mw_dict, WAV_LAUNCHES, TEST_TASKS)
+    print(f"multi-segment wav phase ({card}): " + json.dumps(mw), flush=True)
+    t0 = time.perf_counter()
+    mw_cmp = multiseg_card_vs_cpu_phase(dev, mw_store, mw_dict, "wav")
+    mw_cmp["seconds"] = time.perf_counter() - t0
+    print("multi-segment wav card vs CPU: " + json.dumps(mw_cmp), flush=True)
+    del mw_store
+    kern_ms = multiseg_kernel_cases(dev, ms_flag["eval_batch"], s36["cpl"]["eval_batch"],
+                                    s36["plain"]["eval_batch"], mw["eval_batch"])
+    print("multi-segment kernel cases: " + json.dumps(kern_ms), flush=True)
+
     cli = cli_phase(dev)
     print("raw-audio CLI: " + json.dumps(cli), flush=True)
     train_cli = train_cli_phase()
     print("cli.train_test: " + json.dumps(train_cli), flush=True)
+    prep = preprocess_phase(dev)
+    print(f"preprocessing + multi-segment cli.train_test ({card}): " + json.dumps(prep), flush=True)
 
     k1_f32, k2_flag, k3_eval = kern["K1"][0], kern["K2"][0], kern["K3"][0]
     train_path = [train, train, wav_train]  # K3 trains on the wav path only
@@ -998,7 +1499,8 @@ def main() -> int:
              source="audio_few_shot_learning_tpu_torch/csrc/specaugment.cu",
              replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
              path=slc, library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
-             extra=dict(bf16=kern["K1"][1], in_train_us=train["profile"]["k1_us_per_launch"])),
+             extra=dict(bf16=kern["K1"][1], in_train_us=train["profile"]["k1_us_per_launch"],
+                        **multiseg_launches(0, ms_flag, s36, None), multiseg_cases=kern_ms["K1"])),
         dict(name="episode_scores",
              source="audio_few_shot_learning_tpu_torch/csrc/protohead.cu",
              replaces="audio_few_shot_learning_tpu/ops/protohead.py:136", row=k2_flag,
@@ -1007,7 +1509,8 @@ def main() -> int:
              extra=dict(library="torch.cdist on precomputed prototypes",
                         device_ops_per_call=k2_flag["device_ops_per_call"],
                         cases=kern["K2"][1:], wav_path_launches=wav["eval_launches"][1],
-                        backward=k2_bwd, in_train_us=train["profile"]["k2_us_per_launch"])),
+                        backward=k2_bwd, in_train_us=train["profile"]["k2_us_per_launch"],
+                        **multiseg_launches(1, ms_flag, s36, mw), multiseg_cases=kern_ms["K2"])),
         dict(name="mel_log",
              source="audio_few_shot_learning_tpu_torch/csrc/mel.cu",
              replaces="audio_few_shot_learning_tpu/ops/mel.py:179", row=k3_eval,
@@ -1016,7 +1519,11 @@ def main() -> int:
              extra=dict(library="torch.matmul + torch.log10 (two calls, without eps and log_mult)",
                         bound_ms_dense_flops=k3_eval["bound_ms_dense_flops"],
                         cases=kern["K3"][1:], cli_launches=cli["launches"][2],
-                        in_train_us=wav_train["profile"]["k3_us_per_launch"])),
+                        in_train_us=wav_train["profile"]["k3_us_per_launch"],
+                        **multiseg_launches(2, ms_flag, s36, mw),
+                        launches_to_var_spec=prep["preprocess"]["to_var_spec_launches"][2],
+                        to_var_spec_files=prep["preprocess"]["files"],
+                        launches_to_spec=prep["to_spec"]["launches"][2], multiseg_cases=kern_ms["K3"])),
     ]
     kernels = []
     for i, k in enumerate(common):

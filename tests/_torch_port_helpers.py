@@ -182,4 +182,5 @@ def torch_draws(draws):
 
 
 def episode_cpu(ep):
-    return type(ep)(**{f.name: getattr(ep, f.name).cpu() for f in dataclasses.fields(ep)})
+    return type(ep)(**{f.name: None if getattr(ep, f.name) is None else getattr(ep, f.name).cpu()
+                       for f in dataclasses.fields(ep)})

@@ -38,7 +38,10 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(16, 25, 128, 157), (1, 3, 37, 1000), (2, 1, 1, 31)])
+# the eval batch's support; multi-segment queries at the E the engine takes
+# on an 80 GB card: 16 episodes at s_max 6, 3 at s_max 36 (flagship)
+@pytest.mark.parametrize("shape", [(16, 25, 128, 157), (16, 150, 128, 157), (3, 900, 128, 157),
+                                   (1, 3, 37, 1000), (2, 1, 1, 31)])
 def test_specaugment_kernel_matches_plain(cuda, dtype, shape):
     e, b, f, t = shape
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -81,6 +84,25 @@ def test_protohead_kernel_matches_plain_at_path_shapes(cuda, e, d):
     fused = torch.randn((e, s + q, d), generator=gen, device=cuda)
     sup, qry = fused[:, :s], fused[:, s:]
     lab = torch.arange(5, device=cuda).repeat_interleave(5).expand(e, -1)
+    out = protohead.episode_scores_cuda(sup, lab, qry, 5)
+    ref = protohead.batched_episode_scores_reference(sup, lab, qry, 5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
+
+
+# E as the engine takes it on an 80 GB card: flagship and wav at s_max 6,
+# flagship (D 256) and plain (D 64) at s_max 36
+@pytest.mark.parametrize("e,s_max,d", [(16, 6, 256), (16, 6, 64), (3, 36, 256), (15, 36, 64)])
+def test_protohead_kernel_matches_plain_at_multiseg_shapes(cuda, e, s_max, d):
+    """Multi-segment eval: Q = 25 x s_max query rows (150 and 900: 19 and
+    113 query tiles an episode), slices of one [E, S+Q, D] tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    s, q = 25, 25 * s_max
+    fused = torch.randn((e, s + q, d), generator=gen, device=cuda)
+    sup, qry = fused[:, :s], fused[:, s:]
+    lab = torch.arange(5, device=cuda).repeat_interleave(5).expand(e, -1)
+    plan = protohead.head_plan(e, s, q, d, 5)
+    assert plan.blocks == e * -(-q // plan.q_tile)
     out = protohead.episode_scores_cuda(sup, lab, qry, 5)
     ref = protohead.batched_episode_scores_reference(sup, lab, qry, 5)
     torch.cuda.synchronize()
@@ -150,6 +172,8 @@ def test_eval_path_launches_both_kernels(cuda):
 @pytest.mark.parametrize("flavor", ["online", "offline"])
 @pytest.mark.parametrize("lead,length", [
     ((16 * 50,), 80000),  # the flagship eval batch: M = 125 600
+    ((16 * 175,), 80000),  # the wav multi-segment eval batch at s_max 6: M = 439 600
+    ((36,), 80000),  # a 36-segment file in to_var_spec: M = 5 652
     ((50,), 80000),  # a predict episode
     ((1,), 80000),  # one clip: M = 157, a ragged last tile
     ((1,), 100),  # M = 1
@@ -280,3 +304,46 @@ def test_train_step_launches_k1_and_k2_per_chunk(cuda, microbatch):
     # 2 steps: K1 twice (support, queries) and K2 once per chunk
     assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (
         4 * chunks, 2 * chunks)
+
+
+def test_multiseg_eval_batch_card_vs_cpu(cuda):
+    """One multi-segment eval batch (E=2, items of 1-3 segments, 4 views,
+    attention) on the card against the CPU in float32 with the same weights,
+    episode and draws; the card's votes equal the reference's host loop on
+    the card's scores for every tie strategy."""
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy_host
+
+    rng = np.random.default_rng(13)
+    counts = rng.integers(1, 4, 6 * 5)
+    counts[0] = 3
+    segs = rng.standard_normal((int(counts.sum()), 96, 99)).astype(np.float32)
+    labels = np.repeat(np.arange(6), 5)
+    exp = ExperimentConfig.from_dict({
+        "specaug_params": {"use": True}, "test_query_augmentations": True, "multi_segm": True,
+        "n_way_test": 3, "n_shot_test": 2, "n_query_test": 2,
+        "tpu": {"eval_episode_batch": 2, "compute_dtype": "float32"},
+    })
+    mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8}})
+    store = PackedStore.from_flat_arrays(segs, counts, labels, 6, device=cuda)
+    card = Trainer(exp, mdl, store, device=cuda, seed=1)
+    cpu = Trainer(exp, mdl, store, device="cpu", seed=1)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    ep = sample_episode(torch.Generator(device=cuda).manual_seed(2), store, 3, 2, 2, 2, is_test=True)
+    ep_cpu = type(ep)(**{k: v.cpu() for k, v in vars(ep).items()})
+    qtot = ep.query.shape[1]
+    assert qtot == 3 * 2 * 3
+    gen = torch.Generator().manual_seed(3)
+    draws = tuple(specaugment.draw_views_params(gen, exp.specaug_params, 2, n, 96, 99, "cpu") for n in (6, qtot))
+    with torch.inference_mode():
+        s_card = card._episode_scores(ep, 3, True, card.gen, tuple(tuple(x.to(cuda) for x in d) for d in draws))
+        s_cpu = cpu._episode_scores(ep_cpu, 3, True, cpu.gen, draws)
+    torch.testing.assert_close(s_card.cpu(), s_cpu, atol=1e-3, rtol=0)
+    first = s_card.cpu().numpy()
+    real = ep_cpu.query_mask.numpy() > 0
+    for tie in ("", "min_label", "max_posterior"):
+        got = Trainer.vote_accuracy(s_card, ep, 3, tie, store.s_max).cpu().numpy()
+        want = [majority_vote_accuracy_host(first[i].argmax(-1)[real[i]], ep_cpu.audio_ids[i].numpy()[real[i]],
+                                            ep_cpu.query_labels[i].numpy()[real[i]], first[i].max(-1)[real[i]], tie)
+                for i in range(2)]
+        np.testing.assert_array_equal(got, np.asarray(want, np.float32))

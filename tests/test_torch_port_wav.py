@@ -2,7 +2,7 @@
 
 * ``PackedWavStore``: packing and ``extract_segment`` equal the JAX store's
   to the bit for long, exact-multiple, short and empty items.
-* ``sample_wav_episode``: shapes, labels and class, item and segment
+* ``sample_episode`` on a wav store: shapes, labels and class, item and segment
   frequencies by chi-square (JAX keys and torch generators never agree, so
   samplers are compared by distribution, as test_torch_port_sampler.py does).
 * One wav eval batch and ``predict_episode`` on waveforms: the port's
@@ -11,7 +11,7 @@
 * ``cli.predict`` end to end for a wav-input model and for a spec model fed
   ``.wav`` files (offline log-mel), scores against the JAX pipeline on the
   same files.
-* What raises: WaveAugment, multi-segment wav, and no card.
+* What raises: WaveAugment and no card; a multi-segment test episode's layout.
 
 1-s clips (L = 16 000, 128x32 features) and the "wav" test geometry keep it small.
 """
@@ -33,7 +33,7 @@ from audio_few_shot_learning_tpu.data.wavstore import PackedWavStore as JaxWavSt
 from audio_few_shot_learning_tpu.ops.mel import MelSpec as JaxMelSpec
 from audio_few_shot_learning_tpu.preprocessing.audio_io import load_audio as jax_load_audio
 from audio_few_shot_learning_tpu_torch import config as tcfg
-from audio_few_shot_learning_tpu_torch.data.episodes import sample_wav_episode
+from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 from audio_few_shot_learning_tpu_torch.train.weights import from_jax_variables
@@ -127,7 +127,7 @@ def _id_wav_store(multi_segm=False):
 def test_wav_episode_shapes_labels_and_sorted_classes():
     store, labels = _id_wav_store()
     e = 64
-    ep = sample_wav_episode(torch.Generator().manual_seed(0), store, N_WAY, K_SHOT, K_QUERY, batch=e)
+    ep = sample_episode(torch.Generator().manual_seed(0), store, N_WAY, K_SHOT, K_QUERY, batch=e)
     assert ep.support.shape == (e, N_WAY * K_SHOT, 5) and ep.query.shape == (e, N_WAY * K_QUERY, 5)
     np.testing.assert_array_equal(ep.support_labels[0].numpy(), [0, 0, 1, 1, 2, 2])
     np.testing.assert_array_equal(ep.query_labels[0].numpy(), [0, 0, 1, 1, 2, 2])
@@ -143,7 +143,7 @@ def test_wav_episode_shapes_labels_and_sorted_classes():
 
 def test_wav_episode_class_and_item_frequencies_uniform():
     store, labels = _id_wav_store()
-    ep = sample_wav_episode(torch.Generator().manual_seed(1), store, 2, 1, 1, batch=1200)
+    ep = sample_episode(torch.Generator().manual_seed(1), store, 2, 1, 1, batch=1200)
     items = ep.support[..., 0].long().numpy().ravel()
     classes = np.bincount(labels[items], minlength=N_CLASSES)
     assert scipy.stats.chisquare(classes).pvalue > 1e-4, classes
@@ -151,16 +151,23 @@ def test_wav_episode_class_and_item_frequencies_uniform():
     assert scipy.stats.chisquare(per_item).pvalue > 1e-4, per_item
 
 
-def test_wav_episode_segment_pick_uniform_and_multi_segment_test_raises():
+def test_wav_episode_segment_pick_uniform_and_multi_segment_test_layout():
     store, _ = _id_wav_store(multi_segm=True)
     assert store.s_max == 3 and store.seg_len == 4
-    ep = sample_wav_episode(torch.Generator().manual_seed(2), store, 4, 2, 2, batch=300)
+    ep = sample_episode(torch.Generator().manual_seed(2), store, 4, 2, 2, batch=300)
     first = ep.support[..., 0].numpy()
     np.testing.assert_array_equal(ep.support.numpy(), np.repeat(first[..., None], 4, -1))
     seg = (first.round().astype(int) % 10).ravel()
     assert scipy.stats.chisquare(np.bincount(seg, minlength=3)).pvalue > 1e-4
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sample_wav_episode(torch.Generator(), store, 4, 2, 2, is_test=True)
+    # a test episode: every segment of each query item, query-major, all real here
+    test = sample_episode(torch.Generator(), store, 4, 2, 2, is_test=True)
+    assert test.query.shape == (1, 4 * 2 * 3, 4) and test.support.shape == (1, 8, 4)
+    rows = test.query[0, :, 0].numpy().reshape(8, 3)
+    np.testing.assert_array_equal(rows % 10, np.tile(np.arange(3), (8, 1)))
+    np.testing.assert_array_equal(rows // 10, np.repeat(rows[:, :1] // 10, 3, 1))
+    np.testing.assert_array_equal(test.query_mask.numpy(), np.ones((1, 24), np.float32))
+    np.testing.assert_array_equal(test.audio_ids[0].numpy(), np.repeat(np.arange(8), 3))
+    np.testing.assert_array_equal(test.query_labels[0].numpy(), np.repeat(np.arange(4), 6))
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +208,7 @@ def _jax_wav_scores(jmodel, variables, sup, qry, labels, mean=MEAN, std=STD):
 
 def test_wav_eval_batch_matches_jax(wav_bridged):
     jmodel, variables, trainer, store = wav_bridged
-    ep = sample_wav_episode(torch.Generator().manual_seed(4), store, N_WAY, K_SHOT, K_QUERY, batch=2)
+    ep = sample_episode(torch.Generator().manual_seed(4), store, N_WAY, K_SHOT, K_QUERY, batch=2)
     with torch.inference_mode():
         scores = trainer._episode_scores(ep, N_WAY, True, trainer.gen, store=store).numpy()
         acc = trainer._eval_episodes(ep, N_WAY, True, store=store).numpy()
@@ -319,17 +326,12 @@ def test_predict_cli_raw_audio_matches_jax(tmp_path, input_type):
 # ---------------------------------------------------------------------------
 
 
-def test_wav_trainer_raises_for_waveaugment_multisegment_and_no_card(wav_bridged, monkeypatch):
+def test_wav_trainer_raises_for_waveaugment_and_no_card(wav_bridged, monkeypatch):
     *_, store = wav_bridged
     _, _, texp, tmdl, _, _ = _wav_configs()
     waveaug = dataclasses.replace(texp, waveaug_params=tcfg.WaveAugParams(use=True))
     with pytest.raises(NotImplementedError, match="WaveAugment"):
         Trainer(waveaug, tmdl, store)
-    trainer = Trainer(texp, tmdl, store)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        trainer.evaluate(store, 2, N_WAY, K_SHOT, K_QUERY, False, multisegment=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(dataclasses.replace(texp, multi_segm=True), tmdl, store).test()
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gpu_exp = dataclasses.replace(texp, device="cuda")
