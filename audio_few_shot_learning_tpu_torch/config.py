@@ -14,11 +14,11 @@ This is the PyTorch package's own copy of the JAX package's schema: same
 keys, same defaults, pure Python. The ``tpu.*`` block is parsed unchanged so
 one JSON file drives both packages; here ``episode_batch``,
 ``episode_microbatch``, ``eval_episode_batch``, ``compute_dtype``, ``remat``,
-``store_dtype``, ``fold_bn_eval``, ``eval_segment_budget``, ``seed`` and
-``num_runs`` take effect, ``host_store: true`` and ``bn_per_view_group:
-true`` raise (later slices), and the keys that name TPU machinery
-(``use_pallas``, ``mesh_shape``) are accepted and inert. ``device`` selects
-the card (anything but ``"cpu"``) or the CPU.
+``store_dtype``, ``fold_bn_eval``, ``eval_segment_budget``,
+``bn_per_view_group``, ``seed`` and ``num_runs`` take effect,
+``host_store: true`` and a ``mesh_shape`` above 1 raise (later slices), and
+``use_pallas``, which names TPU machinery, is accepted and inert.
+``device`` selects the card (anything but ``"cpu"``) or the CPU.
 """
 
 from __future__ import annotations

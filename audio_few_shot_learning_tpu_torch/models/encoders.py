@@ -1,4 +1,4 @@
-"""Backbone encoder: the 4-block CNN + RNN hybrid.
+"""Backbone encoders: the 4-block CNN and the CNN + RNN hybrid.
 
 Counterpart of the JAX package's ``models/encoders.py`` in NCHW:
 
@@ -6,20 +6,26 @@ Counterpart of the JAX package's ``models/encoders.py`` in NCHW:
   floor mode) -> ReLU. Pooling before the ReLU equals the reference's
   ReLU -> pool (max commutes with the monotone ReLU) and is the JAX
   package's order;
+* StandardCNN = conv stack -> flatten ``(C, F', T')`` as the reference
+  flattens NCHW (main_modules.py:113) -> Dropout(0.3) -> BatchNorm1d ->
+  Linear, the head in float32. The JAX package flattens ``(F', T', C)``;
+  ``train/weights.py`` permutes the head's rows between the two;
 * Hybrid = conv stack -> ``[B, T', F'*C]`` sequence (F' major, as the JAX
   package flattens ``(F', C)``) -> RNN/GRU/LSTM with an input + output skip
-  connection -> last timestep -> Dropout(0.3) -> BatchNorm1d -> Linear, the
-  head in float32.
+  connection -> last timestep -> the same head.
 
 Convolutions run in ``compute_dtype``. In train mode the conv blocks'
 BatchNorm normalizes with float32 batch statistics (biased variance) and
 moves its running statistics by momentum 0.1 towards the batch mean and the
 unbiased variance (``BandwidthBatchNorm``); the head's BatchNorm1d follows
 flax's ``nn.BatchNorm``, which puts the biased variance into its running
-statistics (``HeadBatchNorm``). In eval mode both apply the running
-statistics, the conv blocks' folded into the conv weights when
-``fold_bn_eval`` is set. With ``remat`` each conv block is recomputed in the
-backward pass (``torch.utils.checkpoint``) instead of holding its
+statistics (``HeadBatchNorm``). With ``tpu.bn_per_view_group`` the model
+passes the batch's ``(S, Vs, Q, Vq)`` layout down and every BatchNorm, the
+head's included, normalizes each (episode, view, support|query) group with
+its own statistics in train mode (``grouped_batch_norm``). In eval mode all
+apply the running statistics, the conv blocks' folded into the conv weights
+when ``fold_bn_eval`` is set. With ``remat`` each conv block is recomputed
+in the backward pass (``torch.utils.checkpoint``) instead of holding its
 full-resolution activations; the recompute leaves the running statistics
 alone, so they move once per forward, as in the JAX package. Dropout draws
 from the generator the caller passes down (``models/dropout.py``).
@@ -44,6 +50,7 @@ from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
 from audio_few_shot_learning_tpu_torch.ops.rnn import Recurrent
 
 NUM_BLOCKS = 4
+ViewGroups = Tuple[int, int, int, int]  # (S, Vs, Q, Vq) of a fused support-then-query batch
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -52,6 +59,58 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dtype
+
+
+def grouped_batch_norm(
+    bn: nn.modules.batchnorm._BatchNorm,
+    x: torch.Tensor,
+    view_groups: ViewGroups,
+    update_stats: bool = True,
+) -> torch.Tensor:
+    """Train-mode BatchNorm with one set of statistics per (episode, view,
+    support|query) group (JAX ``BandwidthBatchNorm._grouped``,
+    models/encoders.py:121-170): the reference's per-view loop feeds its
+    backbone ~25-item groups. Rows of ``x [B, C, ...]`` come support-block
+    first in (episode, item, view) order. Each group normalizes with its own
+    float32 mean and biased variance; with ``update_stats`` the running
+    statistics move once, by momentum towards the mean of the groups' means
+    and of their unbiased variances. The recompute of a rematerialized block
+    passes ``update_stats=False``: its ops and saved tensors are those of
+    the first pass, and the statistics stay where that pass left them."""
+    s, vs, q, vq = view_groups
+    b, c = x.shape[:2]
+    per = s * vs + q * vq
+    e = b // per
+    if e * per != b:
+        raise ValueError(f"batch {b} incompatible with view_groups {view_groups}")
+    xf = x.to(torch.float32).reshape(b, c, -1)
+    spatial = xf.shape[-1]
+
+    def stats(part, items, views):
+        g = part.reshape(e, items, views, c, spatial)
+        m = g.mean(dim=(1, 4))  # [E, views, C]
+        return m, (g.square().mean(dim=(1, 4)) - m.square()).clamp_min(0.0)
+
+    def rows(m, items, views):
+        return m[:, None].expand(e, items, views, c).reshape(-1, c)
+
+    sup_m, sup_v = stats(xf[: e * s * vs], s, vs)
+    qry_m, qry_v = stats(xf[e * s * vs :], q, vq)
+    mean_rows = torch.cat([rows(sup_m, s, vs), rows(qry_m, q, vq)])
+    var_rows = torch.cat([rows(sup_v, s, vs), rows(qry_v, q, vq)])
+    if update_stats:
+        n_sup, n_qry = s * spatial, q * spatial
+        with torch.no_grad():
+            g_means = torch.cat([sup_m.reshape(-1, c), qry_m.reshape(-1, c)]).mean(0)
+            g_vars = torch.cat([sup_v.reshape(-1, c) * (n_sup / max(n_sup - 1, 1)),
+                                qry_v.reshape(-1, c) * (n_qry / max(n_qry - 1, 1))]).mean(0)
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * g_means)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * g_vars)
+            bn.num_batches_tracked.add_(1)
+    shape = (b, c) + (1,) * (x.dim() - 2)
+    inv = (torch.rsqrt(var_rows + bn.eps) * bn.weight).reshape(shape)
+    shift = bn.bias.reshape((1, c) + (1,) * (x.dim() - 2)) - mean_rows.reshape(shape) * inv
+    return x * inv.to(x.dtype) + shift.to(x.dtype)
 
 
 class BandwidthBatchNorm(nn.BatchNorm2d):
@@ -69,7 +128,11 @@ class BandwidthBatchNorm(nn.BatchNorm2d):
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         return inv, self.bias - self.running_mean * inv
 
-    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, update_stats: bool = True, view_groups: Optional[ViewGroups] = None
+    ) -> torch.Tensor:
+        if self.training and view_groups is not None:
+            return grouped_batch_norm(self, x, view_groups, update_stats)
         if self.training:
             running = (self.running_mean, self.running_var)
             if update_stats:
@@ -85,11 +148,15 @@ class HeadBatchNorm(nn.BatchNorm1d):
     """The head's BatchNorm1d as flax's ``nn.BatchNorm(momentum=0.9)``
     computes it in float32: train mode normalizes with the biased batch
     variance and moves the running variance towards that same biased
-    variance (torch's own BatchNorm1d would take the unbiased one)."""
+    variance (torch's own BatchNorm1d would take the unbiased one). With
+    ``view_groups`` (``tpu.bn_per_view_group``) train mode takes the grouped
+    path instead, the JAX package's ``bn_grouped``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, view_groups: Optional[ViewGroups] = None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if view_groups is not None:
+            return grouped_batch_norm(self, x, view_groups)
         var, mean = torch.var_mean(x, dim=0, correction=0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
@@ -115,18 +182,21 @@ class ConvBlock(nn.Sequential):
         self.fold_bn_eval = fold_bn_eval
         self.remat = remat
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, view_groups: Optional[ViewGroups] = None) -> torch.Tensor:
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return self._block(x)
+            return self._block(x, view_groups=view_groups)
         passes = []
 
         def run(inp):
             passes.append(None)
-            return self._block(inp, update_stats=len(passes) == 1)  # not on the recompute
+            # not on the recompute
+            return self._block(inp, update_stats=len(passes) == 1, view_groups=view_groups)
 
         return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
-    def _block(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+    def _block(
+        self, x: torch.Tensor, update_stats: bool = True, view_groups: Optional[ViewGroups] = None
+    ) -> torch.Tensor:
         conv, bn = self[0], self[1]
         if self.fold_bn_eval and not self.training:
             # eval BN is a per-channel affine and conv is linear, so
@@ -137,7 +207,7 @@ class ConvBlock(nn.Sequential):
             x = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
         else:
             x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
-            x = bn(x, update_stats)
+            x = bn(x, update_stats, view_groups)
         ph, pw = self.pool
         if x.shape[2] < ph or x.shape[3] < pw:
             raise ValueError(
@@ -166,8 +236,49 @@ class _LogitsHead(nn.Sequential):
     def __init__(self, width: int, out_dim: int):
         super().__init__(Dropout(0.3), HeadBatchNorm(width), nn.Linear(width, out_dim))
 
-    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self[2](self[1](self[0](x, gen)))
+    def forward(
+        self, x: torch.Tensor, gen: Optional[torch.Generator] = None, view_groups: Optional[ViewGroups] = None
+    ) -> torch.Tensor:
+        return self[2](self[1](self[0](x, gen), view_groups))
+
+
+def _conv_stack(
+    channels: int, pool: Tuple[int, int], fold_bn_eval: bool, remat: bool
+) -> nn.ModuleList:
+    # the input gets one channel axis (the JAX package's x[..., None])
+    return nn.ModuleList(
+        ConvBlock(1 if i == 0 else channels, channels, pool, fold_bn_eval, remat) for i in range(NUM_BLOCKS)
+    )
+
+
+class StandardCNN(nn.Module):
+    """4-block CNN -> flatten ``(C, F', T')`` -> head (JAX ``StandardCNN``,
+    models/encoders.py:304-328). Input ``[B, F, T]``."""
+
+    def __init__(
+        self,
+        cfg: CNNConfig,
+        feat_shape: Tuple[int, int],
+        compute_dtype: str = "bfloat16",
+        fold_bn_eval: bool = False,
+        remat: bool = False,
+    ):
+        super().__init__()
+        self.compute_dtype = torch_dtype(compute_dtype)
+        self.channels = cfg.hidden_channels
+        self.out_dim = cfg.out_dim
+        self.conv_encoder = _conv_stack(cfg.hidden_channels, cfg.pool_dim, fold_bn_eval, remat)
+        fp, tp = conv_output_shape(feat_shape, cfg.pool_dim)
+        self.logits = _LogitsHead(cfg.hidden_channels * fp * tp, cfg.out_dim)
+
+    def forward(
+        self, x: torch.Tensor, gen: Optional[torch.Generator] = None, view_groups: Optional[ViewGroups] = None
+    ) -> torch.Tensor:
+        x = x[:, None].to(self.compute_dtype)
+        for block in self.conv_encoder:
+            x = block(x, view_groups)
+        x = x.to(self.logits[2].weight.dtype).flatten(1)  # the reference's NCHW view(B, -1)
+        return self.logits(x, gen, view_groups)
 
 
 class StandardHybrid(nn.Module):
@@ -188,12 +299,9 @@ class StandardHybrid(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = torch_dtype(compute_dtype)
-        c = cfg.hidden_channels
-        # the input gets one channel axis (the JAX package's x[..., None])
-        self.conv_encoder = nn.ModuleList(
-            ConvBlock(1 if i == 0 else c, c, cfg.pool_dim, fold_bn_eval, remat)
-            for i in range(NUM_BLOCKS)
-        )
+        c = self.channels = cfg.hidden_channels
+        self.out_dim = cfg.out_dim
+        self.conv_encoder = _conv_stack(c, cfg.pool_dim, fold_bn_eval, remat)
         fp, _ = conv_output_shape(feat_shape, cfg.pool_dim)
         self.hidden = fp * c
         self.seq_layers = Recurrent(
@@ -201,10 +309,12 @@ class StandardHybrid(nn.Module):
         )
         self.logits = _LogitsHead(self.hidden, cfg.out_dim)
 
-    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, gen: Optional[torch.Generator] = None, view_groups: Optional[ViewGroups] = None
+    ) -> torch.Tensor:
         x = x[:, None].to(self.compute_dtype)
         for block in self.conv_encoder:
-            x = block(x)
+            x = block(x, view_groups)
         x = x.to(self.logits[2].weight.dtype)  # the head's dtype: float32 but in a float64 reference
         b, c, fp, tp = x.shape
         seq = x.permute(0, 3, 2, 1).reshape(b, tp, fp * c)  # [B, T', (F', C)]
@@ -214,7 +324,7 @@ class StandardHybrid(nn.Module):
             seq_out = fwd + out[..., self.hidden :] + seq
         else:
             seq_out = fwd + seq
-        return self.logits(seq_out[:, -1], gen)
+        return self.logits(seq_out[:, -1], gen, view_groups)
 
 
 class EncoderModule(nn.Module):
@@ -224,8 +334,10 @@ class EncoderModule(nn.Module):
         super().__init__()
         self.encoder = encoder
 
-    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.encoder(x, gen)
+    def forward(
+        self, x: torch.Tensor, gen: Optional[torch.Generator] = None, view_groups: Optional[ViewGroups] = None
+    ) -> torch.Tensor:
+        return self.encoder(x, gen, view_groups)
 
 
 def make_backbone(
@@ -240,5 +352,5 @@ def make_backbone(
     if encoder_name == "Hybrid":
         return EncoderModule(StandardHybrid(hybrid_cfg, feat_shape, compute_dtype, fold_bn_eval, remat))
     if encoder_name == "CNN":
-        raise NotImplementedError("the StandardCNN encoder is a later slice of the port")
+        return EncoderModule(StandardCNN(cnn_cfg, feat_shape, compute_dtype, fold_bn_eval, remat))
     raise ValueError(f"unknown encoder {encoder_name!r}")

@@ -15,9 +15,15 @@ prototypes. With attention the query views are shuffled first, the original
 view kept first, by ``shuffle_perm`` ``[E, V-1]`` (a permutation of views
 1..V-1 per episode, given as data), then fused again and projected.
 
+With ``relation_head`` the scores are the relation MLP's logits over
+``[query ; prototype]`` pairs instead (JAX ``protonets.py:165-179``), the
+prototypes still one-hot class means; K2 does not run. With
+``tpu.bn_per_view_group`` the backbone's BatchNorms get the batch's
+``(S, Vs, Q, Vq)`` layout (JAX ``protonets.py:137-141``).
+
 Children are named as the reference model (``backbone``,
 ``attention_model``, ``projection_head``), so its ``state_dict`` loads with
-``strict=True``. The relation head is a later slice.
+``strict=True``; ``relation_head`` has no reference layout.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from torch import nn
 from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
 from audio_few_shot_learning_tpu_torch.models.attention import SelfAttention
 from audio_few_shot_learning_tpu_torch.models.encoders import make_backbone
-from audio_few_shot_learning_tpu_torch.models.projection import ProjectionHead
+from audio_few_shot_learning_tpu_torch.models.projection import ProjectionHead, RelationHead
 from audio_few_shot_learning_tpu_torch.ops.protohead import batched_episode_scores, compute_prototypes
 from audio_few_shot_learning_tpu_torch.ops.specaugment import NUM_VIEWS
 
@@ -54,8 +60,6 @@ class EpisodeOutputs:
 class FewShotEpisodeModel(nn.Module):
     def __init__(self, exp: ExperimentConfig, mdl: ModelConfig, feat_shape: Tuple[int, int]):
         super().__init__()
-        if exp.relation_head:
-            raise NotImplementedError("the relation head is a later slice of the port")
         self.exp = exp
         self.backbone = make_backbone(
             exp.encoder_name,
@@ -71,9 +75,14 @@ class FewShotEpisodeModel(nn.Module):
         # the projection reads the fused features (V views of embed_dim) or,
         # without attention, the encoder's; flax infers this width in the
         # JAX package, so ``Projection.input_dim`` is not read
-        views = NUM_VIEWS if exp.input_type == "spec" and exp.specaug_params.use else 1
-        width = views * mdl.attention.embed_dim if exp.use_attention else mdl.hybrid.out_dim
+        if exp.input_type == "spec":
+            views = NUM_VIEWS if exp.specaug_params.use else 1
+        else:
+            views = 1 + exp.waveaug_params.aug_num if exp.waveaug_params.use else 1
+        width = views * mdl.attention.embed_dim if exp.use_attention else self.backbone.encoder.out_dim
         self.projection_head = ProjectionHead(dataclasses.replace(mdl.projection, input_dim=width))
+        if exp.relation_head:
+            self.relation_head = RelationHead(mdl.relation, 2 * width)
 
     def forward(
         self,
@@ -104,7 +113,8 @@ class FewShotEpisodeModel(nn.Module):
         flat = torch.cat(
             [support_views.reshape(e * s * vs, f, t), query_views.reshape(e * q * vq, f, t)]
         )
-        feats = self.backbone(flat, gen).to(self.projection_head.fc1.weight.dtype)  # float32
+        view_groups = (s, vs, q, vq) if self.exp.tpu.bn_per_view_group else None
+        feats = self.backbone(flat, gen, view_groups).to(self.projection_head.fc1.weight.dtype)  # float32
         sup_f = feats[: e * s * vs].reshape(e, s, vs, -1)
         qry_f = feats[e * s * vs :].reshape(e, q, vq, -1)
         d = feats.shape[-1]
@@ -120,13 +130,24 @@ class FewShotEpisodeModel(nn.Module):
             query_features = qry_f.transpose(1, 2).reshape(e, q * vq, d)
             labels = support_labels.repeat(1, vs)
 
+        if self.exp.relation_head:
+            protos = compute_prototypes(support_features, labels, n_way)
+            qn = query_features.shape[1]
+            pairs = torch.cat([
+                query_features[:, :, None].expand(e, qn, n_way, query_features.shape[-1]),
+                protos[:, None].expand(e, qn, n_way, protos.shape[-1]),
+            ], dim=-1)
+            scores = self.relation_head(pairs)[..., 0]  # [E, Q, N] relation logits
+        else:
+            protos = None
+            scores = batched_episode_scores(support_features, labels, query_features, n_way)
         out = EpisodeOutputs(
-            support_features=support_features,
-            query_features=query_features,
-            scores=batched_episode_scores(support_features, labels, query_features, n_way),
+            support_features=support_features, query_features=query_features, scores=scores,
+            prototypes=protos,
         )
         if with_contrastive:
-            out.prototypes = compute_prototypes(support_features, labels, n_way)
+            if out.prototypes is None:
+                out.prototypes = compute_prototypes(support_features, labels, n_way)
             if self.exp.use_attention:
                 if shuffle_perm is None:
                     shuffle_perm = torch.arange(1, vq, device=qry_f.device).expand(e, vq - 1)

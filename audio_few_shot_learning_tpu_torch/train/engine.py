@@ -27,14 +27,19 @@ holds (``multisegment_eval_batch``). ``predict_episode`` runs the same
 pipeline on one caller-supplied episode.
 
 Wav-input configs (``input_type: "wav"``) sample raw waveforms from a
-``PackedWavStore`` instead; support and queries of the whole batch go
+``PackedWavStore`` instead. With ``waveaug_params.use`` the waveforms first
+go through WaveAugment (``ops/waveaugment.py``), 1 + ``aug_num`` views per
+item: one chain call over every episode of the batch (support and queries
+together when both are augmented). Then every view row of both groups goes
 through one online log-mel call (K3 on the card) and the store's global
-z-norm, and then through the same model, one view per item.
+z-norm, and through the same model.
 
 The engine runs on the card unless the caller asks for the CPU, through
 ``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
-such request it raises. WaveAugment and the ``bn_per_view_group`` knob
-come with later slices.
+such request it raises. Of the configurations the JAX package's ``Trainer``
+takes, it refuses only a mesh of more than one device (``tpu.mesh_shape``);
+``tpu.host_store`` is refused where the split is loaded
+(``data/datasets.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from audio_few_shot_learning_tpu_torch.models.encoders import torch_dtype
 from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
 from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
 from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
+from audio_few_shot_learning_tpu_torch.ops.waveaugment import ChainDraws, WaveAugment
 from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy
 from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
 
@@ -112,13 +118,17 @@ def eval_episode_bytes(
     channels: int,
     feat_shape: Tuple[int, int],
     compute_dtype: str,
+    chain_rows: int = 0,
+    chain_row_bytes: int = 0,
 ) -> int:
     """Bytes of block 0's conv output over one eval episode: every
     (item, view) the encoder takes, ``channels x F x T`` in the compute dtype.
-    A wav episode counts its log-mel's shape, not its waveform's."""
+    A wav episode counts its log-mel's shape, not its waveform's. With
+    WaveAugment, plus its chain's working set: ``chain_rows`` augmented
+    rows of ``chain_row_bytes`` each (``WaveAugment.row_bytes``)."""
     items = n_support * v_support + n_query_rows * v_query
     itemsize = torch.empty((), dtype=torch_dtype(compute_dtype)).element_size()
-    return items * channels * feat_shape[0] * feat_shape[1] * itemsize
+    return items * channels * feat_shape[0] * feat_shape[1] * itemsize + chain_rows * chain_row_bytes
 
 
 def _slice_tree(obj, sl: slice):
@@ -130,6 +140,8 @@ def _slice_tree(obj, sl: slice):
         return obj[sl]
     if isinstance(obj, tuple):
         return tuple(_slice_tree(x, sl) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _slice_tree(v, sl) for k, v in obj.items()}
     return type(obj)(**{f.name: _slice_tree(getattr(obj, f.name), sl) for f in dataclasses.fields(obj)})
 
 
@@ -143,6 +155,10 @@ class TrainDraws:
     query: Optional[Draws] = None  # ... of the queries
     perms: Optional[torch.Tensor] = None  # [E, V-1] view shuffle of the contrastive branch
     cpl_gumbel: Optional[torch.Tensor] = None  # [E, B, N, B] CPL's sampling noise
+    # WaveAugment draws of the support and the queries (wav input), leaves
+    # [E, aug_num, S|Q, ...] as WaveAugment.draw makes them
+    wave_support: Optional[ChainDraws] = None
+    wave_query: Optional[ChainDraws] = None
 
 
 class _StepClock:
@@ -190,11 +206,11 @@ class Trainer:
         seed: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
     ):
+        if exp.tpu.mesh_shape is not None and exp.tpu.mesh_shape > 1:
+            raise NotImplementedError(
+                f"tpu.mesh_shape={exp.tpu.mesh_shape}: data parallelism over more than one "
+                "device is not ported; the engine runs on one device")
         self.is_wav = exp.input_type == "wav"
-        if self.is_wav and exp.waveaug_params.use:
-            raise NotImplementedError("WaveAugment (waveaug_params.use) is a later slice of the port")
-        if exp.tpu.bn_per_view_group:
-            raise NotImplementedError("tpu.bn_per_view_group is a later slice of the port")
         self.exp = exp
         self.mdl = mdl
         self.device = config_device(exp, device)
@@ -202,7 +218,8 @@ class Trainer:
         self.val_store = val_store
         self.test_store = test_store
         self.specaug = not self.is_wav and exp.specaug_params.use
-        self.v_support = NUM_SPECAUG_VIEWS if self.specaug else 1
+        self.waveaug = self.is_wav and exp.waveaug_params.use
+        self.v_support = self._v_query(True)
         self.eval_episode_batch = exp.tpu.eval_episode_batch
         self.episode_batch = exp.tpu.episode_batch
         self.microbatch = exp.tpu.episode_microbatch
@@ -216,6 +233,7 @@ class Trainer:
         if self.is_wav:
             # the reference's on-device torchaudio MelSpectrogram + 10*log10
             self.mel = MelSpec(flavor="online")
+            self.waveaugment = WaveAugment(exp.waveaug_params, dataset_name=exp.dataset_name)
             self.feat_shape = (N_MELS, 1 + train_store.seg_len // HOP_LENGTH)
         else:
             self.feat_shape = tuple(train_store.feat_shape)
@@ -238,7 +256,11 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _v_query(self, augment_query: bool) -> int:
-        return NUM_SPECAUG_VIEWS if self.specaug and augment_query else 1
+        if self.specaug and augment_query:
+            return NUM_SPECAUG_VIEWS
+        if self.waveaug and augment_query:
+            return 1 + self.exp.waveaug_params.aug_num
+        return 1
 
     def _make_views(
         self,
@@ -254,16 +276,55 @@ class Trainer:
         return spec_augment_views(specs, gen, self.exp.specaug_params, draws=draws)
 
     def _make_wav_views(
-        self, sup: torch.Tensor, qry: torch.Tensor, store: PackedWavStore
+        self,
+        sup: torch.Tensor,
+        qry: torch.Tensor,
+        augment_query: bool,
+        store: PackedWavStore,
+        gen: torch.Generator,
+        draws: Optional[Tuple[Optional[ChainDraws], Optional[ChainDraws]]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Waveforms ``[E, S, L]``, ``[E, Q, L]`` -> views ``[E, S, 1, F, T]``,
-        ``[E, Q, 1, F, T]``: one online log-mel call over all ``E*(S+Q)``
-        rows, then the store's global z-norm (batch_creation.py:123-143)."""
+        """Waveforms ``[E, S, L]``, ``[E, Q, L]`` -> views ``[E, S, Vs, F, T]``,
+        ``[E, Q, Vq, F, T]`` (JAX ``_make_wav_views_pair``, engine.py:196-253).
+
+        When support and queries are both augmented, or neither is, one
+        WaveAugment call (or none) runs over ``[E, S+Q]``; otherwise each
+        group is augmented on its own. Then one online log-mel call over
+        every view row of both groups and the store's global z-norm
+        (batch_creation.py:123-143). ``draws = (support, queries)`` fixes the
+        chain's draws (leaves ``[E, aug_num, S|Q, ...]``); otherwise they
+        come from ``gen``."""
         e, s, length = sup.shape
-        mels = self.mel(torch.cat([sup, qry], dim=1).reshape(-1, length))  # [E*(S+Q), F, T]
+        q = qry.shape[1]
+        aug_s, aug_q = self.waveaug, self.waveaug and augment_query
+        d_s, d_q = draws if draws is not None else (None, None)
+        if aug_s == aug_q:
+            both = torch.cat([sup, qry], dim=1)  # [E, S+Q, L]
+            if aug_s:
+                if (d_s is None) != (d_q is None):
+                    raise ValueError("WaveAugment draws: give both the support's and the queries', or neither")
+                joined = None if d_s is None else {
+                    name: {k: torch.cat([v, d_q[name][k]], dim=2) for k, v in d.items()}
+                    for name, d in d_s.items()
+                }
+                views = self.waveaugment(both, gen, joined)  # [E, S+Q, V, L]
+            else:
+                views = both[:, :, None]
+            v = views.shape[2]
+            flat = views.reshape(-1, length)
+            sizes = (s * v, q * v)
+        else:
+            sup_v = self.waveaugment(sup, gen, d_s) if aug_s else sup[:, :, None]
+            qry_v = self.waveaugment(qry, gen, d_q) if aug_q else qry[:, :, None]
+            sizes = (s * sup_v.shape[2], q * qry_v.shape[2])
+            flat = torch.cat(
+                [sup_v.reshape(e, sizes[0], length), qry_v.reshape(e, sizes[1], length)], dim=1
+            ).reshape(-1, length)
+        mels = self.mel(flat)  # [E*(S*Vs + Q*Vq), F, T]
         mels = (mels - store.mean) / store.std
-        per_ep = mels.reshape(e, -1, 1, *mels.shape[-2:])
-        return per_ep[:, :s], per_ep[:, s:]
+        per_ep = mels.reshape(e, sizes[0] + sizes[1], *mels.shape[-2:])
+        return (per_ep[:, : sizes[0]].reshape(e, s, sizes[0] // s, *mels.shape[-2:]),
+                per_ep[:, sizes[0] :].reshape(e, q, sizes[1] // q, *mels.shape[-2:]))
 
     # ------------------------------------------------------------------
     # training
@@ -280,7 +341,10 @@ class Trainer:
         e = ep.support.shape[0]
         draws = draws or TrainDraws()
         if self.is_wav:
-            sup_views, qry_views = self._make_wav_views(ep.support, ep.query, self.train_store)
+            sup_views, qry_views = self._make_wav_views(
+                ep.support, ep.query, vq > 1, self.train_store, self.gen,
+                (draws.wave_support, draws.wave_query),
+            )
         else:
             sup_views = self._make_views(ep.support, self.specaug, self.gen, draws.support)
             qry_views = self._make_views(ep.query, vq > 1, self.gen, draws.query)
@@ -393,14 +457,16 @@ class Trainer:
         n_way: int,
         augment_query: bool,
         gen: torch.Generator,
-        draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+        draws: Optional[Tuple] = None,
         store: Optional[PackedWavStore] = None,
     ) -> torch.Tensor:
         """Scores ``[E, Q*, n_way]`` of an assembled episode batch;
-        ``draws = (support_draws, query_draws)`` fixes the augmentation. A
-        wav batch is normalized with ``store``'s statistics."""
+        ``draws = (support_draws, query_draws)`` fixes the augmentation
+        (SpecAugment ``Draws``, or WaveAugment ``ChainDraws`` for wav input).
+        A wav batch is normalized with ``store``'s statistics."""
         if self.is_wav:
-            sup_views, qry_views = self._make_wav_views(ep.support, ep.query, store)
+            sup_views, qry_views = self._make_wav_views(
+                ep.support, ep.query, self._v_query(augment_query) > 1, store, gen, draws)
         else:
             sup_draws, qry_draws = draws if draws is not None else (None, None)
             sup_views = self._make_views(ep.support, self.specaug, gen, sup_draws)
@@ -412,7 +478,7 @@ class Trainer:
         ep: EpisodeBatch,
         n_way: int,
         augment_query: bool,
-        draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+        draws: Optional[Tuple] = None,
         store: Optional[PackedWavStore] = None,
         multisegment: bool = False,
         tie_strategy: str = "",
@@ -469,14 +535,28 @@ class Trainer:
         if self.device.type == "cuda":
             free = (torch.cuda.mem_get_info(self.device)[0] + torch.cuda.memory_reserved(self.device)
                     - torch.cuda.memory_allocated(self.device))
-        episode = eval_episode_bytes(
-            n_way * k_shot, n_way * k_query * store.s_max, self.v_support,
-            self._v_query(augment_query), self.mdl.hybrid.hidden_channels, self.feat_shape,
-            self.exp.tpu.compute_dtype,
-        )
+        episode = self.episode_bytes(store, n_way, k_shot, k_query, augment_query)
         return multisegment_eval_batch(
             batch, store.s_max, episode, free, int(np.prod(store.feat_shape)),
             self.exp.tpu.eval_segment_budget,
+        )
+
+    def episode_bytes(
+        self, store: Union[PackedStore, PackedWavStore], n_way: int, k_shot: int, k_query: int,
+        augment_query: bool,
+    ) -> int:
+        """``eval_episode_bytes`` of one multi-segment eval episode of this
+        model on ``store`` (``Q x s_max`` query rows), with WaveAugment's
+        chain over its augmented rows."""
+        n_sup, n_qry = n_way * k_shot, n_way * k_query * store.s_max
+        vq = self._v_query(augment_query)
+        chain_rows = chain_row_bytes = 0
+        if self.waveaug:
+            chain_rows = self.exp.waveaug_params.aug_num * (n_sup + (n_qry if vq > 1 else 0))
+            chain_row_bytes = self.waveaugment.row_bytes(store.seg_len)
+        return eval_episode_bytes(
+            n_sup, n_qry, self.v_support, vq, self.model.backbone.encoder.channels, self.feat_shape,
+            self.exp.tpu.compute_dtype, chain_rows, chain_row_bytes,
         )
 
     @torch.inference_mode()
@@ -540,7 +620,7 @@ class Trainer:
         query: np.ndarray,
         n_way: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
-        draws: Optional[Tuple[Optional[Draws], Optional[Draws]]] = None,
+        draws: Optional[Tuple] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Classify fixed query items against a fixed support set: the
         serving entry point (``cli/predict.py``).
@@ -552,8 +632,10 @@ class Trainer:
         scores ``[Q, n_way]`` f32). Support takes the training augmentation,
         queries follow ``test_query_augmentations``. ``generator`` (on this
         trainer's device) or ``draws = (support_draws, query_draws)``, each
-        ``(ys [1, S|Q, T], tmask [1, T], fmask [1, F])``, fix the augmentation;
-        by default the draws come from a generator seeded with 0.
+        ``(ys [1, S|Q, T], tmask [1, T], fmask [1, F])`` for SpecAugment or
+        WaveAugment draws with leaves ``[1, aug_num, S|Q, ...]`` for a wav
+        model, fix the augmentation; by default the draws come from a
+        generator seeded with 0.
         """
         self.model.eval()
         labels = torch.as_tensor(np.asarray(support_labels), dtype=torch.long)

@@ -11,7 +11,11 @@ copy of the leaf mapping in the JAX package's ``train/torch_interop.py``.
 Layout transforms (flax -> torch): conv kernels ``[kh, kw, I, O]`` ->
 ``[O, I, kh, kw]``; Linear and recurrent matrices transpose (flax stores
 ``[in, out]``); BatchNorm and LayerNorm vectors map 1:1. The CNN head's
-flattened-input permutation is carried for completeness of the mapping.
+input rows are permuted from flax's ``(F', T', C)`` flatten to the
+reference's ``(C, F', T')`` when ``F' * T' > 1`` (JAX
+``train/torch_interop.py:35-43``). The relation head, which no reference
+checkpoint has, maps to ``relation_head.{fc1,fc2,fc3,out}``; a grouped-BN
+model's head BatchNorm (``bn_grouped``) maps to ``logits.1`` like the plain one.
 """
 
 from __future__ import annotations
@@ -54,9 +58,6 @@ def build_mapping(variables: Dict[str, Any]) -> List[Entry]:
     BN-granularity knob)."""
     params = variables["params"]
     entries: List[Entry] = []
-
-    if "relation" in params:
-        raise ValueError("relation_head models have no reference checkpoint layout")
 
     bk = params["backbone"]
     for name in sorted(bk["ConvEncoder_0"]):
@@ -123,6 +124,13 @@ def build_mapping(variables: Dict[str, Any]) -> List[Entry]:
             ("params", ap + ("norm2", "scale"), f"{r}.norm2.weight", "vector"),
             ("params", ap + ("norm2", "bias"), f"{r}.norm2.bias", "vector"),
         ]
+
+    if "relation" in params:  # no reference layout: the port's own keys
+        for name in ("fc1", "fc2", "fc3", "out"):
+            entries += [
+                ("params", ("relation", name, "kernel"), f"relation_head.{name}.weight", "matrix"),
+                ("params", ("relation", name, "bias"), f"relation_head.{name}.bias", "vector"),
+            ]
 
     pp = ("projection",)
     entries += [

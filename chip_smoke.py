@@ -99,7 +99,27 @@ Imports nothing of JAX or of the JAX package. In order it:
    ``compute_waveform_norm``, then ``cli.train_test`` on it with the
    flagship multi-segment config (accuracy above 0.4), and
    ``npy_dir_to_spec`` on fixed 5-s clips against K3's plain version;
-20. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+20. WaveAugment (wav input, aug_num 3, the default chain, as bench.py:98-104
+   trains it), on the 448 MB wav store: (a) ``Trainer.train_epoch`` at E=1
+   for 2 epochs of 32 tasks with launches per step K1 0, K2 1, K3 1, ms per
+   step, peak memory and a profiler pass, then the chain alone on the step's
+   rows (its share of the step's device time, its top kernels), then one
+   step with ``pitchshift_mode: "pv"`` and one with ``fuse_lowpass`` + time
+   stretch + time inversion; (b) ``Trainer.test()`` at E=16 and
+   ``predict_episode`` (launches K3 1, K2 1, K1 0 per batch and per
+   prediction), and multi-segment ``test()`` on the wav store of 1-30 s
+   clips at s_max 6 with the E the engine reckons (its chain's bytes
+   included) and the peak held under its rule; (c) card against CPU: the
+   chain on the same draws (each row within 1e-5 of its input's RMS), one
+   eval batch at E=2, and one train step, card float32 against CPU float64
+   (gradients within 1e-1 of the largest |g|: see WAVAUG_TRAIN_GRAD_REL);
+21. model variants on the spec store: one train step and one eval batch of
+   StandardCNN, the relation head (K2 0 launches) and
+   ``bn_per_view_group`` (E=8 in chunks of 4, every BatchNorm moved once per
+   chunk), launches asserted;
+22. K3 at the WaveAugment shapes (M = 31 400 for a train step, 502 400 for
+   an eval batch of 16), against its plain version and timed as in 3;
+23. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -151,6 +171,20 @@ K2_ATOL, K2_RTOL = 1e-4, 1e-5  # another summation order than the plain matmul
 K3_ATOL_DB = 1e-3  # the same f32 products summed in another order, then log10
 SLICE_ATOL, SLICE_ARGMAX_AGREE = 1e-3, 0.99
 WAV_MEAN, WAV_STD = 20.0, 5.0  # roughly z-scores the online log-mel of the seeded clips
+# WaveAugment as bench.py:98-104 trains it: the default chain, 3 augmented copies
+WAVEAUG = {"use": True, "aug_num": 3}
+# the knobs tests/test_knob_trainstep.py:86-100 trains, one step each
+WAVEAUG_KNOBS = {
+    "pv": {"pitchshift_mode": "pv", "pitchshift_p": 1.0},
+    "fuse_lowpass": {"fuse_lowpass": True, "timestretch_p": 0.7, "timeinversion_p": 0.5},
+}
+CHAIN_RMS_TOL = 1e-5  # card (cuFFT) vs CPU chain on the same draws, of each input row's RMS
+# a wav + WaveAugment train step, card float32 vs CPU float64: the filters'
+# exact stop bands put the log-mel at float32 FFT rounding noise beside the
+# log's eps, and the conv stack's gradients are that ill-conditioned (the
+# port's float32 step is 1.3e-2 of the largest |g| off float64 on the CPU,
+# tests/test_torch_port_train.py)
+WAVAUG_TRAIN_GRAD_REL = 1e-1
 
 
 def card_line() -> str:
@@ -383,13 +417,8 @@ def k3_cases(dev, gen):
     inputs whose base is not 16-byte aligned (plain loads instead of the
     bulk copies). Inputs are power spectrograms of seeded noise, as the path
     makes them."""
-    import torch
-
-    from audio_few_shot_learning_tpu_torch.ops import mel
-
-    rows = []
     hop = 512
-    for case, flavor, clips, length, aligned in (
+    return [k3_case(dev, gen, *c) for c in (
         ("eval", "online", EVAL_BATCH * N_WAY * (K_SHOT + K_QUERY), CLIP, True),
         ("predict", "offline", N_WAY * (K_SHOT + K_QUERY), CLIP, True),
         ("ragged M=157", "online", 1, CLIP, True),
@@ -401,36 +430,46 @@ def k3_cases(dev, gen):
         ("unaligned M=35", "offline", 1, 34 * hop, False),
         ("unaligned M=63", "online", 1, 62 * hop, False),
         ("unaligned predict", "offline", N_WAY * (K_SHOT + K_QUERY), CLIP, False),
-    ):
-        spec = mel.MelSpec(flavor)
-        wav = 0.3 * torch.randn((clips, length), generator=gen, device=dev)
-        pspec = mel.power_spectrogram(wav, pad_mode=spec.pad_mode)
-        if not aligned:
-            pspec = unaligned_copy(pspec)
-        fb = torch.from_numpy(spec.fb).to(dev)
-        bands = mel.band_table(spec.fb).to(dev)
-        args = (pspec, fb, spec.log_mult, spec.eps)
-        out = mel.mel_log_cuda(*args, bands)
-        ref = mel.mel_log_reference(*args).transpose(-1, -2)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not err <= K3_ATOL_DB:
-            raise AssertionError(f"K3 {case} ({flavor}) disagrees with its plain version: {err} dB")
-        ms = graph_ms(lambda: mel.mel_log_cuda(*args, bands))
-        plain = graph_ms(lambda: mel.mel_log_reference(*args))
-        library = graph_ms(lambda: torch.log10(torch.matmul(pspec, fb)))
-        m = pspec.numel() // N_BINS
-        nnz = bands.weights.numel()
-        # the work this filterbank needs: one multiply-add per nonzero weight
-        b_ms, b_by = bound_ms(nbytes(pspec, fb, out), 2 * m * nnz)
-        rows.append(dict(
-            case=case, flavor=flavor, m=m, base_16b_aligned=aligned, max_abs_err=err,
-            tolerance=K3_ATOL_DB, ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms,
-            bound_by=b_by, share_of_bound=b_ms / ms,
-            bound_ms_dense_flops=2 * m * N_BINS * N_MELS / F32_FLOPS * 1e3,
-            filterbank_nonzeros=nnz,
-        ))
-    return rows
+    )]
+
+
+def k3_case(dev, gen, case, flavor, clips, length, aligned=True):
+    """K3 against its plain version on the power spectrogram of ``clips``
+    rows of seeded noise, timed with its bound and the library calls."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.ops import mel
+
+    spec = mel.MelSpec(flavor)
+    wav = 0.3 * torch.randn((clips, length), generator=gen, device=dev)
+    pspec = mel.power_spectrogram(wav, pad_mode=spec.pad_mode)
+    del wav
+    if not aligned:
+        pspec = unaligned_copy(pspec)
+    fb = torch.from_numpy(spec.fb).to(dev)
+    bands = mel.band_table(spec.fb).to(dev)
+    args = (pspec, fb, spec.log_mult, spec.eps)
+    out = mel.mel_log_cuda(*args, bands)
+    ref = mel.mel_log_reference(*args).transpose(-1, -2)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if not err <= K3_ATOL_DB:
+        raise AssertionError(f"K3 {case} ({flavor}) disagrees with its plain version: {err} dB")
+    del ref
+    ms = graph_ms(lambda: mel.mel_log_cuda(*args, bands))
+    plain = graph_ms(lambda: mel.mel_log_reference(*args))
+    library = graph_ms(lambda: torch.log10(torch.matmul(pspec, fb)))
+    m = pspec.numel() // N_BINS
+    nnz = bands.weights.numel()
+    # the work this filterbank needs: one multiply-add per nonzero weight
+    b_ms, b_by = bound_ms(nbytes(pspec, fb, out), 2 * m * nnz)
+    return dict(
+        case=case, flavor=flavor, m=m, base_16b_aligned=aligned, max_abs_err=err,
+        tolerance=K3_ATOL_DB, ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms,
+        bound_by=b_by, share_of_bound=b_ms / ms,
+        bound_ms_dense_flops=2 * m * N_BINS * N_MELS / F32_FLOPS * 1e3,
+        filterbank_nonzeros=nnz,
+    )
 
 
 def make_store(dev):
@@ -456,44 +495,46 @@ def make_wav_store(dev):
     return PackedWavStore.pack(list(clips), labels, n_classes, mean=WAV_MEAN, std=WAV_STD, device=dev)
 
 
-def flagship_dict(input_type="spec", **tpu):
+def flagship_dict(input_type="spec", waveaug=None, **tpu):
+    """The flagship; ``waveaug`` turns WaveAugment on for wav input."""
     return {
         "encoder_name": "Hybrid", "use_attention": True, "use_contrastive": True,
         "input_type": input_type, "n_testing_tasks": TEST_TASKS,
         "specaug_params": {"use": True, "mask_param": 16, "W": 22, "num_mask": 1,
                            "mask_value": 0, "p": 0.282},
-        "waveaug_params": {"use": False},
+        "waveaug_params": waveaug or {"use": False},
         "test_query_augmentations": True,
         "tpu": {"eval_episode_batch": EVAL_BATCH, "compute_dtype": "bfloat16", **tpu},
     }
 
 
-def flagship_exp(input_type="spec", **tpu):
+def flagship_exp(input_type="spec", waveaug=None, **tpu):
     from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
 
-    return ExperimentConfig.from_dict(flagship_dict(input_type, **tpu))
+    return ExperimentConfig.from_dict(flagship_dict(input_type, waveaug, **tpu))
 
 
-def train_dict(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, **tpu):
+def train_dict(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, waveaug=None, over=None, **tpu):
     """The flagship training configuration (``__graft_entry__.py:25-65``:
     lr 7e-4, CPL with l 2.022308, M 5, T 9.2361; with ``loss="apl"`` the
     angular loss of ``configs/esc50_apl.json``: l 1.7235, 15 degrees,
-    prototypes as anchors), ``tasks`` training tasks per epoch."""
-    d = flagship_dict(input_type, **tpu)
+    prototypes as anchors), ``tasks`` training tasks per epoch; ``over``
+    replaces top-level keys (``encoder_name``, ``relation_head``)."""
+    d = flagship_dict(input_type, waveaug, **tpu)
     aux = {"l_param": 2.022308, "cpl": {"use": True, "m_param": 5, "t_param": 9.2361},
            "angular": {"use": False}}
     if loss == "apl":
         aux = {"l_param": 1.7235, "cpl": {"use": False},
                "angular": {"use": True, "angle": 15, "prototypes_as_anchors": True}}
     d.update(lr=7e-4, n_training_tasks=tasks, num_epochs=2, train_query_augmentations=True,
-             validation_query_augmentations=True, loss=aux)
+             validation_query_augmentations=True, loss=aux, **(over or {}))
     return d
 
 
-def train_exp(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, **tpu):
+def train_exp(input_type="spec", loss="cpl", tasks=TRAIN_TASKS, waveaug=None, over=None, **tpu):
     from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
 
-    return ExperimentConfig.from_dict(train_dict(input_type, loss, tasks, **tpu))
+    return ExperimentConfig.from_dict(train_dict(input_type, loss, tasks, waveaug, over, **tpu))
 
 
 def multiseg_launches(i, flagship, s36, wav) -> dict:
@@ -515,7 +556,7 @@ def kernel_counters():
     return (specaugment.views_cuda, protohead.episode_scores_cuda, mel.mel_log_cuda)
 
 
-def serve_phase(dev, store, input_type, expected):
+def serve_phase(dev, store, input_type, expected, waveaug=None):
     """Trainer.test() and predict_episode on the flagship model, bf16, with
     the launches of K1, K2, K3 per eval batch and per prediction asserted."""
     import torch
@@ -525,7 +566,7 @@ def serve_phase(dev, store, input_type, expected):
 
     kernels = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(flagship_exp(input_type), ModelConfig(), store, test_store=store,
+    trainer = Trainer(flagship_exp(input_type, waveaug), ModelConfig(), store, test_store=store,
                       device=dev, seed=0)
     trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans
 
@@ -600,9 +641,10 @@ def serve_phase(dev, store, input_type, expected):
     )
 
 
-def card_vs_cpu_phase(dev, store, input_type):
-    """One float32 eval batch (E=16, as the timed path), same weights,
-    episodes and augmentation draws, card (kernels) vs CPU (plain versions)."""
+def card_vs_cpu_phase(dev, store, input_type, waveaug=None, e=EVAL_BATCH):
+    """One float32 eval batch (E=16, as the timed path; E=2 with
+    WaveAugment), same weights, episodes and augmentation draws, card
+    (kernels) vs CPU (plain versions)."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
@@ -610,8 +652,7 @@ def card_vs_cpu_phase(dev, store, input_type):
     from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    e = EVAL_BATCH
-    exp = flagship_exp(input_type, compute_dtype="float32", eval_episode_batch=e)
+    exp = flagship_exp(input_type, waveaug, compute_dtype="float32", eval_episode_batch=e)
     card = Trainer(exp, ModelConfig(), store, device=dev, seed=3)
     cpu = Trainer(exp, ModelConfig(), store, device="cpu", seed=3)  # the store only gives shapes
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
@@ -626,6 +667,12 @@ def card_vs_cpu_phase(dev, store, input_type):
             for n in (N_WAY * K_SHOT, N_WAY * K_QUERY)
         )
         draws_card = tuple(tuple(x.to(dev) for x in d) for d in draws_cpu)
+    elif waveaug:
+        g = torch.Generator().manual_seed(6)
+        n = exp.waveaug_params.aug_num
+        draws_cpu = tuple(cpu.waveaugment.draw(g, (e, n, k), CLIP, "cpu")
+                          for k in (N_WAY * K_SHOT, N_WAY * K_QUERY))
+        draws_card = tuple(chain_to(d, dev) for d in draws_cpu)
     with torch.inference_mode():
         s_card = card._episode_scores(ep, N_WAY, True, card.gen, draws_card, store).cpu()
         s_cpu = cpu._episode_scores(ep_cpu, N_WAY, True, cpu.gen, draws_cpu, store)
@@ -636,6 +683,12 @@ def card_vs_cpu_phase(dev, store, input_type):
             f"{input_type} card vs CPU: max err {err} (atol {SLICE_ATOL}), argmax agree {agree}"
         )
     return dict(max_abs_err=err, atol=SLICE_ATOL, argmax_agree=agree, episodes=e)
+
+
+def chain_to(draws, dev, dtype=None):
+    """WaveAugment draws moved to ``dev`` (floats cast to ``dtype``)."""
+    return {name: {k: v.to(dev, dtype) if dtype is not None and v.is_floating_point() else v.to(dev)
+                   for k, v in d.items()} for name, d in draws.items()}
 
 
 def cli_phase(dev):
@@ -808,14 +861,17 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
     )
 
 
-def train_card_vs_cpu_phase(dev, store):
+def train_card_vs_cpu_phase(dev, store, input_type="spec", waveaug=None, grad_rel=TRAIN_GRAD_REL):
     """One flagship train step (E=1) in float32 with TF32 off on the card
     (K1, K2 and its closed-form backward, cuDNN) against the same step in
     float64 on the CPU (plain versions): same weights, episode, views,
     permutations and CPL draws, every dropout at p = 0 on both. The CPU runs
     float64 because a float32 CPU step is itself off by up to 1.8e-3 of the
     largest |g| in blocks 0-1 (4M-term reductions), where the card's float32
-    step is within 1.5e-4 of float64 (PERF.md, PR 4)."""
+    step is within 1.5e-4 of float64 (PERF.md, Findings). With wav input
+    and WaveAugment the chain's draws are given as data and the chain and the
+    log-mel run in float32 on both (the CPU's model in float64); gradients
+    are held to ``grad_rel``."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
@@ -825,9 +881,9 @@ def train_card_vs_cpu_phase(dev, store):
     from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
     from audio_few_shot_learning_tpu_torch.train.engine import TrainDraws, Trainer
 
-    exp = train_exp(compute_dtype="float32", episode_batch=1)
+    exp = train_exp(input_type, waveaug=waveaug, compute_dtype="float32", episode_batch=1)
     card = Trainer(exp, ModelConfig(), store, device=dev, seed=3)
-    exp64 = train_exp(compute_dtype="float64", episode_batch=1)
+    exp64 = train_exp(input_type, waveaug=waveaug, compute_dtype="float64", episode_batch=1)
     cpu = Trainer(exp64, ModelConfig(), store, device="cpu", seed=3)  # the store only gives shapes
     cpu.model.double()
     init = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
@@ -841,16 +897,22 @@ def train_card_vs_cpu_phase(dev, store):
     ep_cpu = episode_to_cpu(ep)
     g = torch.Generator().manual_seed(6)
     draws_cpu = TrainDraws(
-        support=draw_views_params(g, exp.specaug_params, 1, N_WAY * K_SHOT, N_MELS, N_FRAMES, "cpu"),
-        query=draw_views_params(g, exp.specaug_params, 1, N_WAY * K_QUERY, N_MELS, N_FRAMES, "cpu"),
         perms=torch.rand((1, 3), generator=g).argsort(dim=-1) + 1,
         cpl_gumbel=draw_cpl_gumbel(g, 1, N_WAY * K_QUERY, N_WAY, "cpu"),
     )
-    draws_card = TrainDraws(
-        support=tuple(x.to(dev) for x in draws_cpu.support),
-        query=tuple(x.to(dev) for x in draws_cpu.query),
-        perms=draws_cpu.perms.to(dev), cpl_gumbel=draws_cpu.cpl_gumbel.to(dev),
-    )
+    draws_card = TrainDraws(perms=draws_cpu.perms.to(dev), cpl_gumbel=draws_cpu.cpl_gumbel.to(dev))
+    if input_type == "spec":
+        draws_cpu.support, draws_cpu.query = (
+            draw_views_params(g, exp.specaug_params, 1, k, N_MELS, N_FRAMES, "cpu")
+            for k in (N_WAY * K_SHOT, N_WAY * K_QUERY))
+        draws_card.support = tuple(x.to(dev) for x in draws_cpu.support)
+        draws_card.query = tuple(x.to(dev) for x in draws_cpu.query)
+    else:
+        n = exp.waveaug_params.aug_num
+        draws_cpu.wave_support, draws_cpu.wave_query = (
+            cpu.waveaugment.draw(g, (1, n, k), CLIP, "cpu") for k in (N_WAY * K_SHOT, N_WAY * K_QUERY))
+        draws_card.wave_support = chain_to(draws_cpu.wave_support, dev)
+        draws_card.wave_query = chain_to(draws_cpu.wave_query, dev)
     t0 = time.perf_counter()
     m_card = card.train_step(ep, draws_card).cpu()
     card_s = time.perf_counter() - t0
@@ -880,17 +942,19 @@ def train_card_vs_cpu_phase(dev, store):
             scale = gp.abs().max().item()
             diff = (gc - gp).abs().max().item()
             worst["grad_rel"] = max(worst["grad_rel"], diff / scale if scale else diff)
-            if not diff <= TRAIN_GRAD_REL * scale:
+            if not diff <= grad_rel * scale:
                 raise AssertionError(f"{name}: gradient card vs CPU differs by {diff}, largest |g| {scale}")
             # Adam's first step is ~lr * sign(g): where |g| is within the
             # allowed difference its sign, and the step, may flip
-            small = gp.abs() <= TRAIN_GRAD_REL * scale
+            small = gp.abs() <= grad_rel * scale
         diff = (pc - pp).abs() / lr
         big_diff = diff[~small].max().item() if (~small).any() else 0.0
         small_diff = diff[small].max().item() if small.any() else 0.0
         worst["param_over_lr"] = max(worst["param_over_lr"], big_diff)
         worst["small_param_over_lr"] = max(worst["small_param_over_lr"], small_diff)
-        if not (big_diff <= 1e-2 and small_diff <= 2.0):
+        # a flipped step is 2 x lr apart, plus the float32 rounding of the card's parameter
+        flip = 2.0 + np.finfo(np.float32).eps * pp.abs().max().item() / lr
+        if not (big_diff <= 1e-2 and small_diff <= flip):
             raise AssertionError(f"{name}: parameters after Adam differ by {big_diff} x lr "
                                  f"(where the gradient's sign is sure) and {small_diff} x lr (else)")
 
@@ -916,7 +980,7 @@ def train_card_vs_cpu_phase(dev, store):
             )
     top = sorted(f32_rel.items(), key=lambda kv: -kv[1]["cpu_float32"])[:4]
     return dict(loss_card=m_card.tolist(), loss_cpu=m_cpu.tolist(), loss_rel=loss_rel,
-                tolerances=dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel=TRAIN_GRAD_REL,
+                tolerances=dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel=grad_rel,
                                 bn_bias_grad_rel=BN_BIAS_NOISE, param_over_lr=1e-2,
                                 small_param_over_lr=2.0),
                 worst=worst, card_step_s=card_s, cpu_step_s=cpu_s,
@@ -1107,7 +1171,7 @@ def birdclef_dict(name, **over):
     return d
 
 
-def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_run=True):
+def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_run=True, timed_runs=TIMED_RUNS):
     """``Trainer.test()`` with ``multi_segm`` over ``tasks`` tasks (the
     config's tie strategy), launches of K1, K2, K3 per eval batch asserted;
     the eval batch E the engine reckoned from the free memory, and the peak
@@ -1130,10 +1194,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
     free_card = torch.cuda.mem_get_info(dev)[0]
     free = free_card + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
     e = trainer.eval_batch_size(store, tasks, N_WAY, K_SHOT, K_QUERY, aug, True)
-    vq = trainer._v_query(aug)
-    episode_bytes = engine.eval_episode_bytes(
-        N_WAY * K_SHOT, N_WAY * K_QUERY * store.s_max, trainer.v_support, vq,
-        trainer.mdl.hybrid.hidden_channels, trainer.feat_shape, exp.tpu.compute_dtype)
+    episode_bytes = trainer.episode_bytes(store, N_WAY, K_SHOT, K_QUERY, aug)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     trainer.evaluate(store, e, tie_strategy=exp.tie_strategy, **run)  # one batch; warms cuDNN up
@@ -1161,7 +1222,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
     # the rate: runs of TIMED_BATCHES full batches of the reckoned E
     timed = TIMED_BATCHES * e
     eval_s = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(timed_runs):
         trainer.evaluate(store, timed, tie_strategy=exp.tie_strategy, **run)
         if trainer.last_eval_batch != e:
             raise AssertionError(f"timed run took E={trainer.last_eval_batch}, the first {e}")
@@ -1183,7 +1244,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
         peak_factor=factor, peak_factor_limit=engine.EVAL_PEAK_FACTOR, peak_share_of_free=peak / free,
         share_limit=engine.EVAL_MEMORY_SHARE,
         launches=launches, launches_per_batch=per_batch, batches=n_batches,
-        timed_tasks=timed, timed_batches=TIMED_BATCHES, eval_seconds=eval_s, eval_episodes_per_s=eps, eval_episodes_per_s_median=float(np.median(eps)),
+        timed_tasks=timed, timed_batches=TIMED_BATCHES, timed_runs=timed_runs, eval_seconds=eval_s, eval_episodes_per_s=eps, eval_episodes_per_s_median=float(np.median(eps)),
         other_tie_strategies=ties, profile=prof,
     )
 
@@ -1376,6 +1437,155 @@ def preprocess_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# WaveAugment and the model variants
+# ---------------------------------------------------------------------------
+
+
+def wavaug_train_phase(dev, store):
+    """(a) ``Trainer.train_epoch`` with WaveAugment (bench.py:98-104: the
+    flagship on wav input, aug_num 3, the default chain) at E=1 for 2 epochs
+    of 32 tasks, launches per step K1 0, K2 1, K3 1; then the chain alone on
+    the step's rows under the profiler (its device time against the step's,
+    its top kernels, ms per call by CUDA events); then one step with each of
+    the knobs of WAVEAUG_KNOBS, launches asserted."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.ops.waveaugment import WaveAugment
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    exp = train_exp("wav", waveaug=WAVEAUG, episode_batch=1)
+    out = train_phase(dev, store, exp, WAV_LAUNCHES)
+    aug = WaveAugment(exp.waveaug_params, dataset_name=exp.dataset_name)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    items = torch.arange(N_WAY * (K_SHOT + K_QUERY), device=dev)
+    x = store.extract_segment(items, torch.zeros_like(items))[None]  # [1, 50, L], the step's rows
+    steps = out["profile_steps"]
+    chain_prof = profile(lambda: [aug(x, gen) for _ in range(steps)])
+    for _ in range(3):
+        aug(x, gen)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        aug(x, gen)
+    end.record()
+    torch.cuda.synchronize()
+    out["chain"] = dict(
+        rows=int(x.shape[1]) * exp.waveaug_params.aug_num, ms_per_call=start.elapsed_time(end) / 10,
+        device_share_of_step=chain_prof["device_busy_us"] / out["profile"]["device_busy_us"],
+        device_us_per_step=chain_prof["device_busy_us"] / steps, profile=chain_prof,
+        row_bytes_reckoned=aug.row_bytes(CLIP),
+    )
+
+    kernels = kernel_counters()
+    knobs = {}
+    for name, knob in WAVEAUG_KNOBS.items():
+        trainer = Trainer(train_exp("wav", waveaug={**WAVEAUG, **knob}, episode_batch=1), ModelConfig(),
+                          store, device=dev, seed=0)
+        ep = sample_episode(trainer.gen, store, N_WAY, K_SHOT, K_QUERY, 1)
+        trainer.train_step(ep)  # warm-up
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(ep).tolist()
+        seconds = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+        if launches != WAV_LAUNCHES or not all(np.isfinite(metrics)):
+            raise AssertionError(f"WaveAugment {name} step: launches {launches}, metrics {metrics}")
+        knobs[name] = dict(metrics=metrics, launches=launches, step_s=seconds,
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["knob_steps"] = knobs
+    return out
+
+
+def chain_card_vs_cpu_phase(dev, store):
+    """(c) The chain on the train step's rows ([1, 50, 80 000], aug_num 3),
+    the same draws given as data, card float32 against CPU float32: each
+    augmented row within CHAIN_RMS_TOL of its input row's RMS. The default
+    chain and the fuse_lowpass knob (with time stretch and inversion)."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import WaveAugParams
+    from audio_few_shot_learning_tpu_torch.ops.waveaugment import WaveAugment
+
+    items = torch.arange(N_WAY * (K_SHOT + K_QUERY), device=dev)
+    x = store.extract_segment(items, torch.zeros_like(items))[None]
+    x_cpu = x.cpu()
+    rms = x_cpu.double().square().mean(-1).sqrt()[0]  # [50]
+    rows = {}
+    for name, raw in (("default", WAVEAUG), ("fuse_lowpass", {**WAVEAUG, **WAVEAUG_KNOBS["fuse_lowpass"]})):
+        aug = WaveAugment(WaveAugParams.from_dict(raw))
+        draws = aug.draw(torch.Generator().manual_seed(4), (1, aug.params.aug_num, x.shape[1]), CLIP, "cpu")
+        got = aug(x, draws=chain_to(draws, dev)).cpu()
+        want = aug(x_cpu, draws=draws)
+        err = ((got - want).abs().amax(-1)[0] / rms[:, None]).max().item()  # [50, 4] over the input RMS
+        if not err <= CHAIN_RMS_TOL:
+            raise AssertionError(f"WaveAugment {name} card vs CPU: {err} of the row RMS (tolerance {CHAIN_RMS_TOL})")
+        rows[name] = dict(max_err_over_rms=err, tolerance=CHAIN_RMS_TOL, rows=int(got.shape[1] * (got.shape[2] - 1)))
+    return rows
+
+
+def variant_phase(dev, store, exp, expected, check_bn=False):
+    """(d) One train step and one eval batch (E=16) of a model variant on
+    the spec store, launches of K1, K2, K3 per step (per chunk) and per
+    batch asserted; with ``check_bn``, every BatchNorm moved once per chunk."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    kernels = kernel_counters()
+    trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=0)
+    e = trainer.episode_batch
+    chunks = e // (trainer.microbatch or e)
+    ep = sample_episode(trainer.gen, store, N_WAY, K_SHOT, K_QUERY, e)
+    trainer.train_step(ep)  # warm-up
+    bn_before = bn_counts(trainer.model)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(ep).tolist()
+    step_s = time.perf_counter() - t0
+    train_launches = [k.launches for k in kernels]
+    bn_moves = [b - a for a, b in zip(bn_before, bn_counts(trainer.model))]
+    if train_launches != [n * chunks for n in expected] or not all(np.isfinite(metrics)):
+        raise AssertionError(f"variant step launched K1, K2, K3 {train_launches} in {chunks} chunk(s) "
+                             f"(expected {expected} per chunk); metrics {metrics}")
+    if check_bn and bn_moves != [chunks] * len(bn_moves):
+        raise AssertionError(f"BatchNorm statistics moved {bn_moves} times in {chunks} chunks")
+    for k in kernels:
+        k.launches = 0
+    mean, _ = trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)
+    eval_launches = [k.launches for k in kernels]
+    if eval_launches != expected or not 0.0 <= mean <= 1.0:
+        raise AssertionError(f"variant eval batch launched K1, K2, K3 {eval_launches} (expected {expected}); "
+                             f"accuracy {mean}")
+    return dict(episode_batch=e, chunks=chunks, remat=trainer.exp.tpu.remat_enabled(), metrics=metrics,
+                train_launches=train_launches, bn_updates=bn_moves, step_s=step_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, eval_launches=eval_launches,
+                eval_accuracy=mean, eval_s=trainer.last_eval_seconds)
+
+
+def k3_wavaug_cases(dev):
+    """(e) K3 at the WaveAugment path's shapes: a train step at E=1 (M = 50
+    x 4 x 157 = 31 400) and a single-segment eval batch at E=16 (M = 16 x
+    50 x 4 x 157 = 502 400), online flavour."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    views = 1 + WAVEAUG["aug_num"]
+    rows = [k3_case(dev, gen, "wavaug train step E=1", "online", N_WAY * (K_SHOT + K_QUERY) * views, CLIP),
+            k3_case(dev, gen, f"wavaug eval batch E={EVAL_BATCH}", "online",
+                    EVAL_BATCH * N_WAY * (K_SHOT + K_QUERY) * views, CLIP)]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1426,6 +1636,15 @@ def main() -> int:
     apl = train_phase(dev, store, train_exp(loss="apl", tasks=4, episode_batch=1), SPEC_LAUNCHES,
                       epochs=1, profile_steps=2)
     print(f"APL train phase ({card}): " + json.dumps(apl), flush=True)
+    variants = {}
+    for name, exp, expected, check_bn in (
+        ("cnn", train_exp(episode_batch=1, over={"encoder_name": "CNN"}), SPEC_LAUNCHES, False),
+        ("relation", train_exp(episode_batch=1, over={"relation_head": True}), [2, 0, 0], False),
+        ("bn_per_view_group", train_exp(episode_batch=8, episode_microbatch=4, bn_per_view_group=True),
+         SPEC_LAUNCHES, True),
+    ):
+        variants[name] = variant_phase(dev, store, exp, expected, check_bn)
+        print(f"variant {name}: train step + eval batch ({card}): " + json.dumps(variants[name]), flush=True)
     t0 = time.perf_counter()
     train_cmp = train_card_vs_cpu_phase(dev, store)
     train_cmp["seconds"] = time.perf_counter() - t0
@@ -1466,6 +1685,16 @@ def main() -> int:
     wav_train = train_phase(dev, wav_store, train_exp("wav", tasks=4, episode_batch=1), WAV_LAUNCHES,
                             epochs=1, profile_steps=2)
     print(f"wav train phase ({card}): " + json.dumps(wav_train), flush=True)
+    wa_train = wavaug_train_phase(dev, wav_store)
+    print(f"WaveAugment train phase, E=1 ({card}): " + json.dumps(wa_train), flush=True)
+    wa = serve_phase(dev, wav_store, "wav", WAV_LAUNCHES, waveaug=WAVEAUG)
+    print(f"WaveAugment eval + predict phase ({card}): " + json.dumps(wa), flush=True)
+    t0 = time.perf_counter()
+    wa_cmp = dict(chain=chain_card_vs_cpu_phase(dev, wav_store),
+                  eval=card_vs_cpu_phase(dev, wav_store, "wav", waveaug=WAVEAUG, e=2),
+                  train=train_card_vs_cpu_phase(dev, wav_store, "wav", WAVEAUG, WAVAUG_TRAIN_GRAD_REL))
+    wa_cmp["seconds"] = time.perf_counter() - t0
+    print("WaveAugment card vs CPU: " + json.dumps(wa_cmp), flush=True)
     del wav_store
 
     t0 = time.perf_counter()
@@ -1480,10 +1709,16 @@ def main() -> int:
     mw_cmp = multiseg_card_vs_cpu_phase(dev, mw_store, mw_dict, "wav")
     mw_cmp["seconds"] = time.perf_counter() - t0
     print("multi-segment wav card vs CPU: " + json.dumps(mw_cmp), flush=True)
+    mwa_dict = flagship_dict("wav", WAVEAUG)
+    mwa_dict["multi_segm"] = True
+    mwa = multiseg_phase(dev, mw_store, mwa_dict, WAV_LAUNCHES, 16, profile_run=False, timed_runs=1)
+    print(f"multi-segment WaveAugment phase ({card}): " + json.dumps(mwa), flush=True)
     del mw_store
     kern_ms = multiseg_kernel_cases(dev, ms_flag["eval_batch"], s36["cpl"]["eval_batch"],
                                     s36["plain"]["eval_batch"], mw["eval_batch"])
     print("multi-segment kernel cases: " + json.dumps(kern_ms), flush=True)
+    k3_wa = k3_wavaug_cases(dev)
+    print("K3 at the WaveAugment shapes: " + json.dumps(k3_wa), flush=True)
 
     cli = cli_phase(dev)
     print("raw-audio CLI: " + json.dumps(cli), flush=True)
@@ -1500,7 +1735,8 @@ def main() -> int:
              replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
              path=slc, library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
              extra=dict(bf16=kern["K1"][1], in_train_us=train["profile"]["k1_us_per_launch"],
-                        **multiseg_launches(0, ms_flag, s36, None), multiseg_cases=kern_ms["K1"])),
+                        **multiseg_launches(0, ms_flag, s36, None), multiseg_cases=kern_ms["K1"],
+                        launches_per_wavaug_eval_batch=wa["eval_launches_per_batch"][0])),
         dict(name="episode_scores",
              source="audio_few_shot_learning_tpu_torch/csrc/protohead.cu",
              replaces="audio_few_shot_learning_tpu/ops/protohead.py:136", row=k2_flag,
@@ -1510,7 +1746,12 @@ def main() -> int:
                         device_ops_per_call=k2_flag["device_ops_per_call"],
                         cases=kern["K2"][1:], wav_path_launches=wav["eval_launches"][1],
                         backward=k2_bwd, in_train_us=train["profile"]["k2_us_per_launch"],
-                        **multiseg_launches(1, ms_flag, s36, mw), multiseg_cases=kern_ms["K2"])),
+                        **multiseg_launches(1, ms_flag, s36, mw), multiseg_cases=kern_ms["K2"],
+                        launches_per_wavaug_train_step=wa_train["launches_per_step"][1],
+                        launches_per_wavaug_eval_batch=wa["eval_launches_per_batch"][1],
+                        launches_per_wavaug_multiseg_batch=mwa["launches_per_batch"][1],
+                        in_wavaug_eval_us=wa["eval_profile"]["k2_us_per_launch"],
+                        variant_train_launches={k: v["train_launches"][1] for k, v in variants.items()})),
         dict(name="mel_log",
              source="audio_few_shot_learning_tpu_torch/csrc/mel.cu",
              replaces="audio_few_shot_learning_tpu/ops/mel.py:179", row=k3_eval,
@@ -1523,7 +1764,11 @@ def main() -> int:
                         **multiseg_launches(2, ms_flag, s36, mw),
                         launches_to_var_spec=prep["preprocess"]["to_var_spec_launches"][2],
                         to_var_spec_files=prep["preprocess"]["files"],
-                        launches_to_spec=prep["to_spec"]["launches"][2], multiseg_cases=kern_ms["K3"])),
+                        launches_to_spec=prep["to_spec"]["launches"][2], multiseg_cases=kern_ms["K3"],
+                        launches_per_wavaug_train_step=wa_train["launches_per_step"][2],
+                        launches_per_wavaug_eval_batch=wa["eval_launches_per_batch"][2],
+                        launches_per_wavaug_multiseg_batch=mwa["launches_per_batch"][2],
+                        in_wavaug_eval_us=wa["eval_profile"]["k3_us_per_launch"], wavaug_cases=k3_wa)),
     ]
     kernels = []
     for i, k in enumerate(common):

@@ -116,7 +116,10 @@ def jax_variables(jexp, jmdl, feat_shape, seed=0):
     U(+-1/sqrt(fan_in)), biases U(+-0.1), and BatchNorm statistics and
     affines randomized so that eval BN (and its fold) is not the identity."""
     opt = make_optimizer(1e-3, (), 0.5, 1)
-    views = 4 if jexp.input_type == "spec" and jexp.specaug_params.use else 1  # as the Trainer makes them
+    if jexp.input_type == "spec":  # as the Trainer makes them
+        views = 4 if jexp.specaug_params.use else 1
+    else:
+        views = 1 + jexp.waveaug_params.aug_num if jexp.waveaug_params.use else 1
     state = jax.eval_shape(
         lambda k: create_train_state(k, jexp, jmdl, feat_shape, opt, v_support=views, v_query=views)[1],
         jax.random.PRNGKey(seed),
@@ -179,6 +182,167 @@ def jax_views(spec, draws, mask_value=0.0):
 
 def torch_draws(draws):
     return tuple(torch.from_numpy(np.asarray(d)) for d in draws)
+
+
+# ---------------------------------------------------------------------------
+# WaveAugment: the draws the JAX functions take from their keys, recomputed
+# on the same split trees (audio_few_shot_learning_tpu/ops/waveaugment.py)
+# ---------------------------------------------------------------------------
+
+
+def _ju(key, shape, lo, hi):
+    return np.asarray(jax.random.uniform(key, shape, minval=lo, maxval=hi))
+
+
+def _japplied(key, b, p):
+    return np.asarray(jax.random.uniform(key, (b,)) < p)
+
+
+def jd_cut(key, b, lo, hi, p):
+    """lowpass / highpass: k1 -> cut [B, 1], k2 -> applied."""
+    k1, k2 = jax.random.split(key)
+    return {"cut": _ju(k1, (b, 1), lo, hi), "applied": _japplied(k2, b, p)}
+
+
+def jd_bandstop(key, b, lo, hi, frac_lo, frac_hi, p):
+    k1, k2, k3 = jax.random.split(key, 3)
+    return {"center": _ju(k1, (b, 1), lo, hi), "bw_frac": _ju(k2, (b, 1), frac_lo, frac_hi),
+            "applied": _japplied(k3, b, p)}
+
+
+def jd_gain(key, b, lo, hi, p):
+    k1, k2 = jax.random.split(key)
+    return {"db": _ju(k1, (b, 1), lo, hi), "applied": _japplied(k2, b, p)}
+
+
+def jd_inversion(key, b, p):
+    return {"applied": _japplied(key, b, p)}
+
+
+def jd_shift(key, b, lo, hi, p):
+    k1, k2 = jax.random.split(key)
+    return {"frac": _ju(k1, (b,), lo, hi), "applied": _japplied(k2, b, p)}
+
+
+def jd_noise(key, b, l, snr_lo, snr_hi, dec_lo, dec_hi, p, spectrum):
+    """add_colored_noise (white [B, L]) or the fused group (spectrum normals)."""
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    d = {"snr": _ju(k1, (b, 1), snr_lo, snr_hi), "decay": _ju(k2, (b, 1), dec_lo, dec_hi),
+         "applied": _japplied(k4, b, p)}
+    if spectrum:
+        d["w"] = np.asarray(jax.random.normal(k3, (b, l // 2 + 1, 2)))
+    else:
+        d["white"] = np.asarray(jax.random.normal(k3, (b, l)))
+    return d
+
+
+@jax.jit
+def _semitone_rate(st):
+    return 2.0 ** (st / 12.0)
+
+
+def jd_pitch(key, b, lo, hi, p, jitted=False):
+    """The rate 2^(st/12), computed by jnp as the JAX function computes it:
+    eagerly, or under jit (``jitted``) for a JAX call inside ``jax.jit``;
+    the two differ by an ulp on ~4% of draws, which moves the resample's
+    positions near i ~ 1.6e4 by ~2e-3 samples."""
+    k1, k2 = jax.random.split(key)
+    st = jax.random.uniform(k1, (b,), minval=lo, maxval=hi)
+    rate = _semitone_rate(st) if jitted else 2.0 ** (st / 12.0)
+    return {"rate": np.asarray(rate), "applied": _japplied(k2, b, p)}
+
+
+def jd_stretch(key, b, lo, hi, p):
+    k1, k2 = jax.random.split(key)
+    return {"ratio": _ju(k1, (b,), lo, hi), "applied": _japplied(k2, b, p)}
+
+
+def jd_splice(key, b, l, n, max_width, p):
+    k1, k2, k3 = jax.random.split(key, 3)
+    return {"starts": np.asarray(jax.random.randint(k1, (b, n), 0, max(l - max_width, 1))),
+            "widths": np.asarray(jax.random.randint(k2, (b, n), 1, max_width + 1)),
+            "applied": _japplied(k3, b, p)}
+
+
+def jd_timemask(key, b, l, n, fraction, p):
+    k1, k2 = jax.random.split(key)
+    mask_len = max(int(l * fraction), 1)
+    return {"starts": np.asarray(jax.random.randint(k1, (b, n), 0, max(l - mask_len, 1))),
+            "applied": _japplied(k2, b, p)}
+
+
+def jax_chain_draws(raw, dataset_name, key, b, l, jitted=False):
+    """The draws of the JAX ``WaveAugment.apply_once`` for ``[b, l]`` rows
+    from ``key`` (its 12-way split, ``:523``), keyed as the port's chain;
+    ``jitted`` for a chain that runs inside ``jax.jit``."""
+    from audio_few_shot_learning_tpu.ops.waveaugment import FEATURE_STATS, _DEFAULT_STATS
+
+    stats = FEATURE_STATS.get(dataset_name, _DEFAULT_STATS)
+    c, bw = float(stats["avg_centroid"]), float(stats["avg_bandwidth"])
+    adapted = float(raw.get("max_snr_in_db", 25.0)) * (1.0 - float(stats["avg_flatness"]))
+    min_snr = float(raw.get("min_snr_in_db", 10.0))
+    prob = lambda name, default: float(raw.get(name, default))  # noqa: E731
+    ks = jax.random.split(key, 12)
+    p_lp, p_noise, p_hp, p_bs = prob("lowpass_p", 0.5), prob("noise_p", 0.5), prob("highpass_p", 0.3), prob("bandstop_p", 0.5)
+    fuse_lp = bool(raw.get("fuse_lowpass", False)) and p_lp > 0 and (p_noise > 0 or p_hp > 0 or p_bs > 0)
+    fused = fuse_lp or (p_noise > 0) + (p_hp > 0) + (p_bs > 0) >= 2
+    bs = (c - bw / 2, c, raw.get("bandstop_min_bandwidth_fraction", 0.5), raw.get("bandstop_max_bandwidth_fraction", 1.0))
+    noise = (min_snr, adapted, raw.get("noise_min_f_decay", -2), raw.get("noise_max_f_decay", 2))
+    d = {}
+    if p_lp > 0:
+        d["lowpass"] = jd_cut(ks[0], b, c, c + bw / 2, p_lp)
+    if prob("pitchshift_p", 0.5) > 0:
+        d["pitchshift"] = jd_pitch(ks[1], b, raw.get("pitchshift_min_transpose_semitones", -4),
+                                   raw.get("pitchshift_max_transpose_semitones", 4), prob("pitchshift_p", 0.5),
+                                   jitted)
+    if prob("shift_p", 0.5) > 0:
+        d["shift"] = jd_shift(ks[2], b, raw.get("shift_min_shift", -0.5), raw.get("shift_max_shift", 0.5),
+                              prob("shift_p", 0.5))
+    if prob("timeinversion_p", 0.0) > 0:
+        d["timeinversion"] = jd_inversion(ks[3], b, prob("timeinversion_p", 0.0))
+    if prob("gain_p", 0.5) > 0:
+        d["gain"] = jd_gain(ks[4], b, raw.get("min_gain_in_db", -6), raw.get("max_gain_in_db", 6), prob("gain_p", 0.5))
+    if p_noise > 0:
+        d["noise"] = jd_noise(ks[5], b, l, *noise, p_noise, spectrum=fused)
+    if p_hp > 0 and (fused or p_noise == 0):
+        d["highpass"] = jd_cut(ks[6], b, c - bw / 2, c, p_hp)
+    if p_bs > 0 and (fused or (p_noise == 0 and p_hp == 0)):
+        d["bandstop"] = jd_bandstop(ks[7], b, *bs, p_bs)
+    if prob("spliceout_p", 0.5) > 0:
+        d["spliceout"] = jd_splice(ks[8], b, l, int(raw.get("spliceout_num_time_intervals", 8)),
+                                   int(raw.get("spliceout_max_width", 400)), prob("spliceout_p", 0.5))
+    if prob("timestretch_p", 0.0) > 0:
+        d["timestretch"] = jd_stretch(ks[9], b, raw.get("min_stretch_ratio", 0.9),
+                                      raw.get("max_stretch_ratio", 1.1), prob("timestretch_p", 0.0))
+    if prob("timemasking_p", 0.5) > 0:
+        d["timemasking"] = jd_timemask(ks[10], b, l, int(raw.get("timemasking_masks", 5)),
+                                       float(raw.get("timemasking_mask_fraction", 0.01)), prob("timemasking_p", 0.5))
+    return d
+
+
+def torch_chain(draws):
+    """numpy chain draws -> torch (integer starts and widths as int64)."""
+    def conv(a):
+        t = torch.from_numpy(np.array(a))
+        return t.long() if t.dtype in (torch.int32, torch.int64) else t
+    return {name: {k: conv(v) for k, v in d.items()} for name, d in draws.items()}
+
+
+def jax_episode_chain_draws(raw, dataset_name, key, e, n, b, l, jitted=False):
+    """Draws of the JAX engine's chain over E episodes of ``b`` rows: one
+    key per episode (``split(key, E)``, engine.py:223-224), each chain over
+    its ``n x b`` copy-major rows. Leaves ``[E, n, b, ...]``, as the port's
+    ``WaveAugment.draw`` lays them out."""
+    per = [jax_chain_draws(raw, dataset_name, k, n * b, l, jitted) for k in jax.random.split(key, e)]
+    return {name: {k: np.stack([p[name][k] for p in per]).reshape(e, n, b, *per[0][name][k].shape[1:])
+                   for k in per[0][name]} for name in per[0]}
+
+
+def split_chain(draws, s):
+    """Combined-chain draws ``[E, n, S+Q, ...]`` -> (support, queries)."""
+    sup = {name: {k: v[:, :, :s] for k, v in d.items()} for name, d in draws.items()}
+    qry = {name: {k: v[:, :, s:] for k, v in d.items()} for name, d in draws.items()}
+    return sup, qry
 
 
 def episode_cpu(ep):

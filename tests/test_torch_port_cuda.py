@@ -347,3 +347,60 @@ def test_multiseg_eval_batch_card_vs_cpu(cuda):
                                             ep_cpu.query_labels[i].numpy()[real[i]], first[i].max(-1)[real[i]], tie)
                 for i in range(2)]
         np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("raw", [{"use": True, "aug_num": 3},
+                                 {"use": True, "aug_num": 2, "fuse_lowpass": True, "timestretch_p": 0.7,
+                                  "timeinversion_p": 0.5},
+                                 {"use": True, "aug_num": 2, "pitchshift_mode": "pv", "pitchshift_p": 1.0}],
+                         ids=["default", "fuse_lowpass", "pv"])
+def test_waveaugment_chain_card_vs_cpu(cuda, raw):
+    """The chain on the card (cuFFT, gathers) against the CPU on the same
+    draws: each row within 1e-5 of its input's RMS (the phase vocoder, whose
+    phase accumulator sums in another order, 5e-3 relative RMS on tones)."""
+    from audio_few_shot_learning_tpu_torch.config import WaveAugParams
+    from audio_few_shot_learning_tpu_torch.ops.waveaugment import WaveAugment
+
+    t = torch.arange(16000) / 16000.0
+    f0 = torch.tensor([220.0, 440.0, 880.0, 1320.0])[:, None]
+    x = (0.5 * torch.sin(2 * torch.pi * f0 * t))[None]  # [1, 4, 16000]
+    if raw.get("pitchshift_mode") != "pv":
+        x = x + 0.2 * torch.randn(x.shape, generator=torch.Generator().manual_seed(0))
+    aug = WaveAugment(WaveAugParams.from_dict(raw))
+    draws = aug.draw(torch.Generator().manual_seed(1), (1, aug.params.aug_num, 4), 16000, "cpu")
+    want = aug(x, draws=draws)
+    got = aug(x.to(cuda), draws={n: {k: v.to(cuda) for k, v in d.items()} for n, d in draws.items()}).cpu()
+    assert got.shape == want.shape == (1, 4, 1 + aug.params.aug_num, 16000)
+    if raw.get("pitchshift_mode") == "pv":
+        rel = ((got - want).square().mean(-1) / want.square().mean(-1)).sqrt()
+        assert rel.max().item() <= 5e-3
+    else:
+        rms = x.square().mean(-1, keepdim=True).sqrt()[..., None]  # [1, 4, 1, 1]
+        assert ((got - want).abs().amax(-1, keepdim=True) / rms).max().item() <= 1e-5
+
+
+def test_waveaugment_and_relation_paths_launch_their_kernels(cuda):
+    """A WaveAugment train step and eval batch launch K3 once and K2 once
+    (K1 never); a relation-head model's train step launches K2 never."""
+    rng = np.random.default_rng(14)
+    wavs = list((0.3 * rng.standard_normal((6 * 4, 16000))).astype(np.float32))
+    store = PackedWavStore.pack(wavs, np.repeat(np.arange(6), 4), mean=19.0, std=5.0, device=cuda)
+    base = {"input_type": "wav", "n_training_tasks": 1, "n_testing_tasks": 2,
+            "n_way_train": 3, "n_shot_train": 2, "n_query_train": 2,
+            "n_way_test": 3, "n_shot_test": 2, "n_query_test": 2,
+            "loss": {"cpl": {"use": True, "m_param": 2, "t_param": 2.0}},
+            "tpu": {"eval_episode_batch": 2}}
+    mdl = ModelConfig.from_dict({"Hybrid": {"pool_dim": [2, 2], "hidden_channels": 8},
+                                 "Attention": {"embed_dim": 64, "ffn_dim": 64}})
+    kernels = (mel.mel_log_cuda, protohead.episode_scores_cuda, specaugment.views_cuda)
+    for over, per_step in (({"waveaug_params": {"use": True, "aug_num": 3}}, (1, 1, 0)),
+                           ({"relation_head": True}, (1, 0, 0))):
+        trainer = Trainer(ExperimentConfig.from_dict({**base, **over}), mdl, store, test_store=store)
+        for k in kernels:
+            k.launches = 0
+        out = trainer.train_epoch()
+        assert np.isfinite(out["loss"]) and tuple(k.launches for k in kernels) == per_step
+        for k in kernels:
+            k.launches = 0
+        assert 0.0 <= trainer.test()["mean_accuracy"] <= 1.0
+        assert tuple(k.launches for k in kernels) == per_step  # one batch of 2 episodes

@@ -103,15 +103,24 @@ def test_test_run_reports_accuracy(bridged, monkeypatch):
 
 
 def test_multi_segment_evaluates_and_waveaugment_is_a_later_slice(bridged):
+    """Multi-segment eval runs; a wav config with WaveAugment, once a later
+    slice, now builds a Trainer with 1 + aug_num views and evaluates."""
+    from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
+
     *_, trainer, store, _ = bridged
     mean, std = trainer.evaluate(store, 2, N_WAY, K_SHOT, K_QUERY, True, multisegment=True)
     assert 0.0 <= mean <= 1.0 and std >= 0.0
-    _, _, texp, tmdl, _ = configs("small")
+    _, _, texp, tmdl, _ = configs("wav")
     wav_aug = dataclasses.replace(
         texp, input_type="wav", waveaug_params=dataclasses.replace(texp.waveaug_params, use=True)
     )
-    with pytest.raises(NotImplementedError, match="WaveAugment.*later slice"):
-        Trainer(wav_aug, tmdl, store)
+    rng = np.random.default_rng(5)
+    wav_store = PackedWavStore.pack(list((0.3 * rng.standard_normal((12, 16000))).astype(np.float32)),
+                                    np.repeat(np.arange(3), 4), mean=19.0, std=5.0, device="cpu")
+    wav_trainer = Trainer(wav_aug, tmdl, wav_store)
+    assert wav_trainer.waveaug and wav_trainer.v_support == 1 + wav_aug.waveaug_params.aug_num == 4
+    mean, _ = wav_trainer.evaluate(wav_store, 1, N_WAY, 1, 1, True)
+    assert 0.0 <= mean <= 1.0
 
 
 def test_trainer_without_cuda_raises(monkeypatch):

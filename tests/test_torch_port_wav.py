@@ -11,7 +11,8 @@
 * ``cli.predict`` end to end for a wav-input model and for a spec model fed
   ``.wav`` files (offline log-mel), scores against the JAX pipeline on the
   same files.
-* What raises: WaveAugment and no card; a multi-segment test episode's layout.
+* A WaveAugment Trainer builds and predicts; no card raises; a
+  multi-segment test episode's layout.
 
 1-s clips (L = 16 000, 128x32 features) and the "wav" test geometry keep it small.
 """
@@ -327,11 +328,16 @@ def test_predict_cli_raw_audio_matches_jax(tmp_path, input_type):
 
 
 def test_wav_trainer_raises_for_waveaugment_and_no_card(wav_bridged, monkeypatch):
+    """WaveAugment, once refused, builds a Trainer of 1 + aug_num views that
+    predicts; without a card and unasked for the CPU the engine raises."""
     *_, store = wav_bridged
     _, _, texp, tmdl, _, _ = _wav_configs()
-    waveaug = dataclasses.replace(texp, waveaug_params=tcfg.WaveAugParams(use=True))
-    with pytest.raises(NotImplementedError, match="WaveAugment"):
-        Trainer(waveaug, tmdl, store)
+    waveaug = dataclasses.replace(texp, waveaug_params=tcfg.WaveAugParams(use=True, aug_num=2))
+    aug_trainer = Trainer(waveaug, tmdl, store)
+    assert aug_trainer.v_support == aug_trainer._v_query(True) == 3
+    wavs = store.extract_segment(torch.arange(9), torch.zeros(9, dtype=torch.long)).numpy()
+    pred, scores = aug_trainer.predict_episode(wavs[:6], np.repeat(np.arange(N_WAY), 2), wavs[6:])
+    assert scores.shape == (3, N_WAY) and np.isfinite(scores).all()
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gpu_exp = dataclasses.replace(texp, device="cuda")
