@@ -15,8 +15,9 @@ keys, same defaults, pure Python. The ``tpu.*`` block is parsed unchanged so
 one JSON file drives both packages; here ``episode_batch``,
 ``episode_microbatch``, ``eval_episode_batch``, ``compute_dtype``, ``remat``,
 ``store_dtype``, ``fold_bn_eval``, ``eval_segment_budget``,
-``bn_per_view_group``, ``seed`` and ``num_runs`` take effect,
-``host_store: true`` and a ``mesh_shape`` above 1 raise (later slices), and
+``bn_per_view_group``, ``seed`` and ``num_runs`` take effect, as does
+``host_store`` (true keeps the splits in host RAM, false on the card, null
+picks by size); a ``mesh_shape`` above 1 raises (a later slice), and
 ``use_pallas``, which names TPU machinery, is accepted and inert.
 ``device`` selects the card (anything but ``"cpu"``) or the CPU.
 """

@@ -6,10 +6,13 @@ input), ``<root>/splits.npy`` (three arrays of class names: train, valid,
 test) and ``<root>/norm_stats/glob_norm.npy`` (the global mean and std of the
 log-mel values, shape (2, 1, 1)). ``load_packed_split`` packs one split into
 a device-resident ``PackedStore`` (spec features, z-scored) or
-``PackedWavStore`` (raw waveforms, the z-norm applied after the mel) through
-numpy. A split too large to sit on the card beside the training program
-would need the JAX package's host-resident stores, which are a later slice
-of the port: such a split raises and names them. ``make_synthetic_dataset``
+``PackedWavStore`` (raw waveforms, the z-norm applied after the mel), or
+into host RAM as a ``HostStore`` / ``WavHostStore`` when ``tpu.host_store``
+says so or the split would not fit on the card beside the training program
+(or, for wav, passes the device store's int32 sample addressing); the
+engine then streams each episode batch to the card. Spec files are packed by
+the native C++ packer (``data/native_pack.py``), or through numpy with the
+same arithmetic where the files are irregular. ``make_synthetic_dataset``
 writes a learnable spec dataset in the same layout.
 """
 
@@ -23,8 +26,11 @@ import numpy as np
 import torch
 
 from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+from audio_few_shot_learning_tpu_torch.data import native_pack
+from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore, resolve_store_dtype
-from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
+from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
+from audio_few_shot_learning_tpu_torch.data.wavstore import MAX_DEVICE_SAMPLES, PackedWavStore
 
 _SPLIT_IDX = {"train": 0, "valid": 1, "test": 2}
 # as the JAX package: a split larger than this share of the card's memory
@@ -81,18 +87,69 @@ class MetaAudioDataset:
         itemsize = 4 if self.input_type == "wav" else resolve_store_dtype(dtype).itemsize
         return int(sum(p.stat().st_size for p in self.filepaths) * itemsize / 4)
 
-    def to_packed_store(self, dtype="float32", device: Union[str, torch.device] = "cuda"):
+    def estimated_samples(self) -> int:
+        """An upper bound on a wav split's sample count from the files'
+        sizes (float32 samples plus their headers)."""
+        return sum(p.stat().st_size for p in self.filepaths) // 4
+
+    def _pack_spec_native(self, dtype: torch.dtype):
+        """``(segments [G, F, T] CPU tensor, seg_counts)`` from the native
+        packer, or None when the files are irregular (a header the packer
+        does not take, or feature shapes that differ)."""
+        if not self.filepaths:
+            return None
+        probes = [native_pack.probe(p) for p in self.filepaths]
+        if any(p is None for p in probes):
+            return None
+        first = np.load(self.filepaths[0], mmap_mode="r", allow_pickle=False)
+        f_dim, t_dim = first.shape[-2:] if first.ndim in (2, 3) else (0, 0)
+        seg_counts = np.asarray([p[1] for p in probes], dtype=np.int64)
+        if f_dim * t_dim == 0 or any(p[0] != c * f_dim * t_dim for p, c in zip(probes, seg_counts)):
+            return None
+        offsets = np.zeros(len(seg_counts) + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum(seg_counts * f_dim * t_dim)
+        out = torch.empty((int(seg_counts.sum()), f_dim, t_dim), dtype=dtype)
+        native_pack.pack_files_flat(self.filepaths, out, offsets, self.mean, self.std)
+        return out, seg_counts
+
+    def _pack_spec(self, dtype) -> Tuple[torch.Tensor, np.ndarray]:
+        """The split's z-scored segments ``[G, F, T]`` in ``dtype`` on the CPU
+        and per-item segment counts: native packer, or the same arithmetic
+        in numpy (``native_pack.normalize``) for irregular files."""
+        dtype = resolve_store_dtype(dtype)
+        if dtype in (torch.float32, torch.bfloat16):
+            flat = self._pack_spec_native(dtype)
+            if flat is not None:
+                return flat
         items = [np.load(p, allow_pickle=True) for p in self.filepaths]
+        items = [native_pack.normalize(x[None] if x.ndim == 2 else x, self.mean, self.std) for x in items]
+        segments = np.concatenate(items, axis=0) if items else np.zeros((0, 1, 1), np.float32)
+        return torch.from_numpy(segments).to(dtype), np.asarray([x.shape[0] for x in items], np.int64)
+
+    def to_packed_store(self, dtype="float32", device: Union[str, torch.device] = "cuda"):
         if self.input_type == "wav":
+            items = [np.load(p, allow_pickle=True) for p in self.filepaths]
             return PackedWavStore.pack(
                 items, self.labels, n_classes=len(self.class_names), mean=self.mean,
                 std=self.std, multi_segm=self.multi_segm,
                 segment_seconds=self._segment_seconds(), device=device,
             )
-        return PackedStore.pack(
-            items, self.labels, n_classes=len(self.class_names), mean=self.mean,
-            std=self.std, dtype=dtype, device=device,
-        )
+        segments, seg_counts = self._pack_spec(dtype)
+        return PackedStore.from_flat_arrays(segments, seg_counts, self.labels, len(self.class_names),
+                                            device=device)
+
+    def to_host_store(self, dtype="float32"):
+        """The split in host RAM: a ``HostStore`` (spec) or a
+        ``WavHostStore`` streamed from the files' headers (wav; ``dtype``
+        ``'bfloat16'`` means float16 there)."""
+        if self.input_type == "wav":
+            return WavHostStore.pack_from_files(
+                self.filepaths, self.labels, n_classes=len(self.class_names), mean=self.mean,
+                std=self.std, multi_segm=self.multi_segm, segment_seconds=self._segment_seconds(),
+                dtype=dtype,
+            )
+        segments, seg_counts = self._pack_spec(dtype)
+        return HostStore.from_flat_arrays(segments, seg_counts, self.labels, len(self.class_names))
 
 
 def _device_memory_bytes(device: torch.device) -> Optional[int]:
@@ -108,17 +165,24 @@ def load_packed_split(
     device: Union[str, torch.device] = "cuda",
     dtype: Optional[str] = None,
 ):
-    """One split as a ``PackedStore`` / ``PackedWavStore`` on ``device``."""
+    """One split as a ``PackedStore`` / ``PackedWavStore`` on ``device``, or
+    in host RAM as a ``HostStore`` / ``WavHostStore`` (the JAX package's
+    routing): ``tpu.host_store`` true forces the host store, false the
+    device store; null picks the host store when the packed split (wav
+    reckoned in float32) exceeds ``HOST_STORE_MEMORY_FRACTION`` of the
+    card's memory, or when a wav split's samples pass the device store's
+    int32 addressing (``MAX_DEVICE_SAMPLES``)."""
     device = torch.device(device)
     dtype = exp.tpu.store_dtype if dtype is None else dtype
     ds = MetaAudioDataset(exp, root, split)
-    limit = _device_memory_bytes(device)
-    too_large = limit is not None and ds.estimated_packed_bytes(dtype) > HOST_STORE_MEMORY_FRACTION * limit
-    if exp.tpu.host_store or (exp.tpu.host_store is None and too_large):
-        raise NotImplementedError(
-            f"the {split} split ({ds.estimated_packed_bytes(dtype) / 1e9:.1f} GB packed) needs a "
-            "host-resident store (HostStore / WavHostStore), a later slice of the port"
-        )
+    host = exp.tpu.host_store
+    if host is None:
+        limit = _device_memory_bytes(device)
+        est = ds.estimated_packed_bytes(dtype)
+        host = limit is not None and est > HOST_STORE_MEMORY_FRACTION * limit
+        host = host or (ds.input_type == "wav" and ds.estimated_samples() >= MAX_DEVICE_SAMPLES)
+    if host:
+        return ds.to_host_store(dtype=dtype)
     return ds.to_packed_store(dtype=dtype, device=device)
 
 

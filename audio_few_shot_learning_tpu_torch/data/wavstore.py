@@ -35,6 +35,10 @@ import torch
 
 from audio_few_shot_learning_tpu_torch.config import SAMPLE_RATE, SEGMENT_SECONDS
 
+# as the JAX package: the device store addresses samples with int32; a
+# larger split is for the host-resident WavHostStore (int64 offsets)
+MAX_DEVICE_SAMPLES = int(np.iinfo(np.int32).max)
+
 
 def pack_wav_ragged(
     waveforms: Sequence[np.ndarray],
@@ -161,12 +165,12 @@ class PackedWavStore:
         flat, offsets, lengths, tails, tail_index, seg_counts, seg_len = pack_wav_ragged(
             waveforms, multi_segm, segment_seconds, sr
         )
-        if flat.shape[0] >= np.iinfo(np.int32).max - seg_len:
-            # as the JAX package: a split this large (> ~8.6 GB f32) is for
-            # the host-resident store, which addresses with int64
+        if flat.shape[0] >= MAX_DEVICE_SAMPLES - seg_len:
+            # a split this large (> ~8.6 GB f32) is for the host store
             raise ValueError(
-                f"split has {flat.shape[0]} samples (> int32 addressing); "
-                "use the host-resident WavHostStore for splits this large"
+                f"split has {flat.shape[0]} samples (> int32 addressing); such a split is for the "
+                "host-resident WavHostStore, where load_packed_split sends it when tpu.host_store "
+                "is null (or true)"
             )
         s_max = int(seg_counts.max()) if len(lengths) else 1
         table, counts = build_class_table(labels_np, n_classes)

@@ -34,12 +34,24 @@ together when both are augmented). Then every view row of both groups goes
 through one online log-mel call (K3 on the card) and the store's global
 z-norm, and through the same model.
 
+Host-resident stores (``HostStore``, ``WavHostStore``: a split too large
+for the card, or ``tpu.host_store: true``) feed the same paths from host
+RAM (``host_mode`` for training, per store for evaluation): each batch is
+drawn on the host with a numpy Generator, the JAX package's calls in its
+order, gathered into a pinned staging buffer and copied to the card on a
+copy stream while the card runs the previous step (``data/staging.py``);
+nothing changes after episode assembly. One Generator is seeded per epoch
+and one per ``evaluate`` call from words drawn from the trainer's
+generator (one host synchronization each), so a resumed run, whose
+generator state is checkpointed, replays the same episode stream. The JAX
+package seeds its host Generator from its run key instead; like the device
+sampler's, the draws differ between the packages (a documented RNG
+deviation), the semantics do not.
+
 The engine runs on the card unless the caller asks for the CPU, through
 ``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
 such request it raises. Of the configurations the JAX package's ``Trainer``
-takes, it refuses only a mesh of more than one device (``tpu.mesh_shape``);
-``tpu.host_store`` is refused where the split is loaded
-(``data/datasets.py``).
+takes, it refuses only a mesh of more than one device (``tpu.mesh_shape``).
 """
 
 from __future__ import annotations
@@ -54,7 +66,10 @@ import torch.nn.functional as F
 
 from audio_few_shot_learning_tpu_torch.config import HOP_LENGTH, N_MELS, ExperimentConfig, ModelConfig
 from audio_few_shot_learning_tpu_torch.data.episodes import EpisodeBatch, sample_episode
+from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
+from audio_few_shot_learning_tpu_torch.data.staging import EpisodeStager
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
+from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 from audio_few_shot_learning_tpu_torch.device import resolve_device
 from audio_few_shot_learning_tpu_torch.losses import angular_loss, cpl_loss, fsl_loss
@@ -67,6 +82,7 @@ from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accur
 from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
 
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
+Store = Union[PackedStore, PackedWavStore, HostStore, WavHostStore]
 METRIC_NAMES = ("loss", "fsl_loss", "cpl_loss")
 
 # Multi-segment eval batch on the card. Block 0's conv output (channels x
@@ -185,6 +201,10 @@ class _StepClock:
         return [1e3 * (b - a) for a, b in pairs]
 
 
+def is_host_resident(store) -> bool:
+    return getattr(store, "is_host_resident", False)
+
+
 def config_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
     """``device`` if given, else the CPU when the config says ``"cpu"``, else
     the card ``exp.gpu_index``; raises as ``resolve_device`` does."""
@@ -200,9 +220,9 @@ class Trainer:
         self,
         exp: ExperimentConfig,
         mdl: ModelConfig,
-        train_store: Union[PackedStore, PackedWavStore],
-        val_store: Union[PackedStore, PackedWavStore, None] = None,
-        test_store: Union[PackedStore, PackedWavStore, None] = None,
+        train_store: Store,
+        val_store: Optional[Store] = None,
+        test_store: Optional[Store] = None,
         seed: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
     ):
@@ -215,6 +235,8 @@ class Trainer:
         self.mdl = mdl
         self.device = config_device(exp, device)
         self.train_store = train_store
+        self.host_mode = is_host_resident(train_store)
+        self._stager: Optional[EpisodeStager] = None
         self.val_store = val_store
         self.test_store = test_store
         self.specaug = not self.is_wav and exp.specaug_params.use
@@ -252,6 +274,33 @@ class Trainer:
         self.last_step_ms: List[float] = []
 
     # ------------------------------------------------------------------
+    # host-fed batches
+    # ------------------------------------------------------------------
+
+    @property
+    def stager(self) -> EpisodeStager:
+        """The pinned double-buffered staging of host-sampled batches (made
+        at first use)."""
+        if self._stager is None:
+            self._stager = EpisodeStager(self.device)
+        return self._stager
+
+    def host_rng(self) -> np.random.Generator:
+        """A numpy Generator for the host sampler, seeded from four words of
+        the trainer's generator (one host synchronization)."""
+        words = torch.randint(0, 2**31 - 1, (4,), generator=self.gen, device=self.device)
+        return np.random.default_rng(words.tolist())
+
+    def _batches(self, store: Store, n_way: int, k_shot: int, k_query: int, is_test: bool = False):
+        """A function ``size -> EpisodeBatch`` on the device: from the device
+        sampler, or for a host store from the host sampler through the
+        staging buffers, with one Generator for every batch it gives."""
+        if not is_host_resident(store):
+            return lambda size: sample_episode(self.gen, store, n_way, k_shot, k_query, size, is_test=is_test)
+        rng = self.host_rng()
+        return lambda size: self.stager.stage(store, store.plan(rng, n_way, k_shot, k_query, is_test, size))
+
+    # ------------------------------------------------------------------
     # views
     # ------------------------------------------------------------------
 
@@ -280,7 +329,7 @@ class Trainer:
         sup: torch.Tensor,
         qry: torch.Tensor,
         augment_query: bool,
-        store: PackedWavStore,
+        store: Union[PackedWavStore, WavHostStore],
         gen: torch.Generator,
         draws: Optional[Tuple[Optional[ChainDraws], Optional[ChainDraws]]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -414,18 +463,16 @@ class Trainer:
 
     def train_epoch(self) -> Dict[str, float]:
         """``steps_per_epoch`` steps of ``episode_batch`` episodes sampled from
-        the train store; the metrics are read back once, at the end."""
+        the train store (host-fed for a host store: the JAX package's
+        ``_run_epoch_hostfed``); the metrics are read back once, at the end."""
         exp = self.exp
         clock = _StepClock(self.device)
         per_step = []
         t0 = time.perf_counter()
+        batches = self._batches(self.train_store, exp.n_way_train, exp.n_shot_train, exp.n_query_train)
         clock.mark()
         for _ in range(self.steps_per_epoch):
-            ep = sample_episode(
-                self.gen, self.train_store, exp.n_way_train, exp.n_shot_train,
-                exp.n_query_train, self.episode_batch,
-            )
-            per_step.append(self.train_step(ep))
+            per_step.append(self.train_step(batches(self.episode_batch)))
             clock.mark()
         means = torch.stack(per_step).mean(dim=0).tolist()  # the epoch's one synchronization
         self.last_epoch_seconds = time.perf_counter() - t0
@@ -458,7 +505,7 @@ class Trainer:
         augment_query: bool,
         gen: torch.Generator,
         draws: Optional[Tuple] = None,
-        store: Optional[PackedWavStore] = None,
+        store: Union[PackedWavStore, WavHostStore, None] = None,
     ) -> torch.Tensor:
         """Scores ``[E, Q*, n_way]`` of an assembled episode batch;
         ``draws = (support_draws, query_draws)`` fixes the augmentation
@@ -479,7 +526,7 @@ class Trainer:
         n_way: int,
         augment_query: bool,
         draws: Optional[Tuple] = None,
-        store: Optional[PackedWavStore] = None,
+        store: Union[PackedWavStore, WavHostStore, None] = None,
         multisegment: bool = False,
         tie_strategy: str = "",
         s_max: int = 1,
@@ -516,7 +563,7 @@ class Trainer:
 
     def eval_batch_size(
         self,
-        store: Union[PackedStore, PackedWavStore],
+        store: Store,
         n_tasks: int,
         n_way: int,
         k_shot: int,
@@ -542,7 +589,7 @@ class Trainer:
         )
 
     def episode_bytes(
-        self, store: Union[PackedStore, PackedWavStore], n_way: int, k_shot: int, k_query: int,
+        self, store: Store, n_way: int, k_shot: int, k_query: int,
         augment_query: bool,
     ) -> int:
         """``eval_episode_bytes`` of one multi-segment eval episode of this
@@ -562,7 +609,7 @@ class Trainer:
     @torch.inference_mode()
     def evaluate(
         self,
-        store: Union[PackedStore, PackedWavStore],
+        store: Store,
         n_tasks: int,
         n_way: int,
         k_shot: int,
@@ -574,7 +621,9 @@ class Trainer:
         """Mean and std of per-task accuracy over ``n_tasks`` episodes; with
         ``multisegment``, of the majority votes of each query item's
         segments under ``tie_strategy``. The accuracies are read back once,
-        at the end; ``last_eval_batch`` holds the episodes per batch."""
+        at the end; ``last_eval_batch`` holds the episodes per batch. A host
+        store feeds the batches from the host (the JAX package's host-fed
+        eval), with one host Generator for the call."""
         self.model.eval()
         eligible = int((store.class_counts >= k_shot + k_query).sum())
         if eligible < n_way:
@@ -584,11 +633,12 @@ class Trainer:
         batch = self.eval_batch_size(store, n_tasks, n_way, k_shot, k_query, augment_query, multisegment)
         self.last_eval_batch = batch
         t0 = time.perf_counter()
+        batches = self._batches(store, n_way, k_shot, k_query, is_test=multisegment)
         accs = []
         remaining = n_tasks
         while remaining > 0:  # the last batch takes what remains
             size = min(batch, remaining)
-            ep = sample_episode(self.gen, store, n_way, k_shot, k_query, size, is_test=multisegment)
+            ep = batches(size)
             accs.append(self._eval_episodes(
                 ep, n_way, augment_query, store=store, multisegment=multisegment,
                 tie_strategy=tie_strategy, s_max=store.s_max,

@@ -119,11 +119,32 @@ Imports nothing of JAX or of the JAX package. In order it:
    chunk), launches asserted;
 22. K3 at the WaveAugment shapes (M = 31 400 for a train step, 502 400 for
    an eval batch of 16), against its plain version and timed as in 3;
-23. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+23. host-resident streaming, the same seeded stores loaded a second time as
+   host stores (``HostStore``, ``WavHostStore``: episodes drawn on the host,
+   gathered into pinned buffers, copied on a copy stream while the card
+   runs the previous step), each beside its device-store phase of this run:
+   (a) ``train_epoch`` from a bf16 ``HostStore`` of the 35 x 40 store, E=1
+   (2 epochs of 32 tasks) and E=8 in chunks of 4 (3 steps): launches per
+   step K1 2, K2 1, K3 0, ms per step and episodes/s, H2D bytes per step,
+   the copy's own time (CUDA events on the copy stream), the busy share
+   under the profiler; (b) ``Trainer.test()`` at E=16 (64 tasks) and one
+   ``predict_episode``, and multi-segment ``test()`` with
+   ``configs/birdclef_cpl.json`` on bf16 host copies of the s_max 6 and 36
+   stores at the E the engine reckons: launches per batch K1 2, K2 1, K3 0,
+   rates, bytes and copy time per batch; (c) a float16 ``WavHostStore`` of
+   the 448 MB clip store: ``test()`` at E=16, ``train_epoch`` at E=1 (2
+   epochs of 32 tasks), and multi-segment ``test()`` on the 1-30 s store
+   at s_max 6: launches K1 0, K2 1, K3 1; (d) staging integrity: a checksum
+   of every batch as it arrives on the card, for one host-fed epoch and one
+   host-fed eval run, read back at the end and held exactly against the same
+   batches regenerated on the host from the same Generator; (e) the native
+   packer: a seeded tree of 1 400 spec files packed to float32 and bfloat16
+   by the packer and by the numpy path, bit-equal, files/s and GB/s of both;
+24. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
-preprocessing. Any failure raises and exits non-zero. Exits non-zero without a result when
+preprocessing; each host-fed phase runs after its device-store phase. Any failure raises and exits non-zero. Exits non-zero without a result when
 no CUDA device is present.
 """
 
@@ -472,26 +493,36 @@ def k3_case(dev, gen, case, flavor, clips, length, aligned=True):
     )
 
 
-def make_store(dev):
+def make_store(dev, host_dtype=None):
+    """35 classes x 40 items of 128x157 seeded noise, f32 on the card (112
+    MB), or with ``host_dtype`` the same segments in a HostStore."""
+    from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
     from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 
     n_classes, per_class = 35, 40
     rng = np.random.default_rng(0)
     segments = rng.standard_normal((n_classes * per_class, N_MELS, N_FRAMES), dtype=np.float32)
     labels = np.repeat(np.arange(n_classes), per_class)
+    if host_dtype:
+        return HostStore.from_flat_arrays(segments, np.ones(len(labels), np.int64), labels, n_classes,
+                                          dtype=host_dtype)
     return PackedStore.from_flat_arrays(
         segments, np.ones(len(labels), np.int64), labels, n_classes, device=dev
     )
 
 
-def make_wav_store(dev):
-    """35 classes x 40 clips of 5 s of seeded noise: 448 MB on the card."""
+def make_wav_store(dev, host_dtype=None):
+    """35 classes x 40 clips of 5 s of seeded noise: 448 MB on the card, or
+    with ``host_dtype`` the same clips in a WavHostStore."""
+    from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
     from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 
     n_classes, per_class = 35, 40
     rng = np.random.default_rng(0)
     clips = 0.3 * rng.standard_normal((n_classes * per_class, CLIP), dtype=np.float32)
     labels = np.repeat(np.arange(n_classes), per_class)
+    if host_dtype:
+        return WavHostStore.pack(list(clips), labels, n_classes, mean=WAV_MEAN, std=WAV_STD, dtype=host_dtype)
     return PackedWavStore.pack(list(clips), labels, n_classes, mean=WAV_MEAN, std=WAV_STD, device=dev)
 
 
@@ -1134,8 +1165,10 @@ def multiseg_kernel_cases(dev, e_flag6, e_flag36, e_plain36, e_wav):
     return rows
 
 
-def make_multiseg_store(dev, n_classes, per_class, s_max, seed):
-    """Seeded 128x157 f32 items of 1..s_max segments (item 0 has s_max)."""
+def make_multiseg_store(dev, n_classes, per_class, s_max, seed, host_dtype=None):
+    """Seeded 128x157 f32 items of 1..s_max segments (item 0 has s_max);
+    with ``host_dtype`` in a HostStore."""
+    from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
     from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 
     rng = np.random.default_rng(seed)
@@ -1143,12 +1176,16 @@ def make_multiseg_store(dev, n_classes, per_class, s_max, seed):
     counts[0] = s_max
     segments = rng.standard_normal((int(counts.sum()), N_MELS, N_FRAMES), dtype=np.float32)
     labels = np.repeat(np.arange(n_classes), per_class)
+    if host_dtype:
+        return HostStore.from_flat_arrays(segments, counts, labels, n_classes, dtype=host_dtype)
     return PackedStore.from_flat_arrays(segments, counts, labels, n_classes, device=dev)
 
 
-def make_multiseg_wav_store(dev):
+def make_multiseg_wav_store(dev, host_dtype=None):
     """35 classes x 20 clips of 1-30 s of seeded noise at 16 kHz, 5-s
-    segments (s_max 6): ~700 MB on the card."""
+    segments (s_max 6): ~700 MB on the card; with ``host_dtype`` in a
+    WavHostStore."""
+    from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
     from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 
     n_classes, per_class = 35, 20
@@ -1157,6 +1194,9 @@ def make_multiseg_wav_store(dev):
     lengths[0] = 30 * SR
     clips = [0.3 * rng.standard_normal(int(n), dtype=np.float32) for n in lengths]
     labels = np.repeat(np.arange(n_classes), per_class)
+    if host_dtype:
+        return WavHostStore.pack(clips, labels, n_classes, mean=WAV_MEAN, std=WAV_STD, multi_segm=True,
+                                 dtype=host_dtype)
     return PackedWavStore.pack(clips, labels, n_classes, mean=WAV_MEAN, std=WAV_STD,
                                multi_segm=True, device=dev)
 
@@ -1586,6 +1626,301 @@ def k3_wavaug_cases(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# host-resident streaming: HostStore / WavHostStore through the staging
+# ---------------------------------------------------------------------------
+
+
+def copy_stats(traces) -> dict:
+    """The staged copies' own device times (CUDA events on the copy stream)
+    and bytes, from the ``trace`` lists of stagers."""
+    copies = [c for trace in traces for c in trace]
+    ms = [a.elapsed_time(b) for a, b, _ in copies]
+    n = [x for _, _, x in copies]
+    return dict(copies=len(ms), copy_ms_median=float(np.median(ms)), copy_ms_total=float(sum(ms)),
+                bytes_per_copy=float(np.mean(n)), h2d_gb_per_s=sum(n) / max(sum(ms), 1e-9) / 1e6)
+
+
+@contextlib.contextmanager
+def traced_stagers():
+    """Every ``Trainer.stager`` made inside records its copies; yields the
+    list of their traces."""
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    traces, make = [], Trainer.stager.fget
+
+    def traced(self):
+        stager = make(self)
+        if stager.trace is None:
+            stager.trace = []
+            traces.append(stager.trace)
+        return stager
+
+    Trainer.stager = property(traced)
+    try:
+        yield traces
+    finally:
+        Trainer.stager = property(make)
+
+
+def store_row(store) -> dict:
+    return dict(store=type(store).__name__, store_dtype=str(store.dtype).replace("torch.", ""),
+                store_gb=store.nbytes() / 1e9)
+
+
+def hostfed_train_phase(dev, store, exp, expected, device_row, epochs=2):
+    """``Trainer.train_epoch`` on a host store (the host sampler, pinned
+    double-buffered copies), launches of K1, K2, K3 per step (per chunk)
+    asserted as on the device store; ms per step and episodes/s beside
+    ``device_row`` (the device-store train phase of this run), H2D bytes per
+    step, the copy's own time, and the device's busy share under the
+    profiler over one more epoch; then ``validate()``."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    kernels = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=0)
+    if not trainer.host_mode:
+        raise AssertionError("a host store should put the trainer in host mode")
+    e, steps = trainer.episode_batch, trainer.steps_per_epoch
+    chunks = e // (trainer.microbatch or e)
+    for k in kernels:
+        k.launches = 0
+    epochs_out = [trainer.train_epoch()]
+    launches = [k.launches for k in kernels]
+    want = [n * chunks for n in expected]
+    if [n / steps for n in launches] != want:
+        raise AssertionError(f"host-fed train launched K1, K2, K3 {launches} times in {steps} steps; "
+                             f"expected {want} per step")
+    trainer.stager.trace = []
+    h2d0 = trainer.stager.h2d_bytes
+    for _ in range(1, epochs):
+        epochs_out.append(trainer.train_epoch())
+    step_ms = trainer.last_step_ms  # the last epoch's
+    for out in epochs_out:
+        if not all(np.isfinite(out[k]) for k in ("loss", "fsl_loss", "cpl_loss")):
+            raise AssertionError(f"non-finite host-fed training losses: {epochs_out}")
+    copies = copy_stats([trainer.stager.trace]) if epochs > 1 else None
+    h2d_per_step = (trainer.stager.h2d_bytes - h2d0) / (steps * (epochs - 1)) if epochs > 1 else None
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile(trainer.train_epoch)
+    val = trainer.validate()
+    if not 0.0 <= val[0] <= 1.0:
+        raise AssertionError(f"host-fed validation accuracy out of range: {val}")
+    med = float(np.median(step_ms))
+    return dict(
+        **store_row(store), episode_batch=e, chunks=chunks, steps_per_epoch=steps, epochs=epochs_out,
+        launches_first_epoch=launches, launches_per_step=[n / steps for n in launches], step_ms=step_ms,
+        step_ms_median=med, step_ms_min=min(step_ms), train_episodes_per_s_median=1e3 * e / med,
+        device_store_step_ms_median=device_row["step_ms_median"], device_store_step_ms_min=min(device_row["step_ms"]),
+        device_store_episodes_per_s_median=device_row["train_episodes_per_s_median"],
+        step_ms_over_device_store=med / device_row["step_ms_median"], h2d_bytes_per_step=h2d_per_step,
+        copy=copies, peak_mem_gb=peak, device_busy_share=prof["device_busy_share"], profile=prof,
+        validate=dict(mean=val[0], std=val[1], seconds=trainer.last_eval_seconds),
+    )
+
+
+def hostfed_eval_phase(dev, store, input_type, expected, device_row):
+    """``Trainer.test()`` (single segment, E=16, 64 tasks) and one
+    ``predict_episode`` with a host store as train and test store, launches
+    per batch and per prediction asserted; rates over 4 more runs beside
+    ``device_row`` (the device-store serve phase of this run), bytes and
+    copy time per batch, the busy share under the profiler."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    kernels = kernel_counters()
+    trainer = Trainer(flagship_exp(input_type), ModelConfig(), store, test_store=store, device=dev, seed=0)
+    trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans, buffers
+    for k in kernels:
+        k.launches = 0
+    result = trainer.test()
+    launches = [k.launches for k in kernels]
+    n_batches = TEST_TASKS // EVAL_BATCH
+    per_batch = [n / n_batches for n in launches]
+    if per_batch != expected or not 0.0 <= result["mean_accuracy"] <= 1.0:
+        raise AssertionError(f"host-fed {input_type} eval launched K1, K2, K3 {per_batch} per batch "
+                             f"(expected {expected}); {result}")
+    trainer.stager.trace = []
+    eval_s = [trainer.last_eval_seconds]
+    for _ in range(4):
+        trainer.evaluate(store, TEST_TASKS, N_WAY, K_SHOT, K_QUERY, True)
+        eval_s.append(trainer.last_eval_seconds)
+    torch.cuda.synchronize()
+    copies = copy_stats([trainer.stager.trace])
+    trainer.stager.trace = None
+    prof = profile(lambda: trainer.evaluate(store, TEST_TASKS, N_WAY, K_SHOT, K_QUERY, True))
+    ep = store.sample_episode_batch(np.random.default_rng(1), N_WAY, K_SHOT, K_QUERY)
+    support, query = ep.support[0].float().numpy(), ep.query[0].float().numpy()
+    labels = np.repeat(np.arange(N_WAY), K_SHOT)
+    trainer.predict_episode(support, labels, query)  # warm-up
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, scores = trainer.predict_episode(support, labels, query)
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    predict_launches = [k.launches for k in kernels]
+    if predict_launches != expected or scores.shape != (N_WAY * K_QUERY, N_WAY) or not np.isfinite(scores).all():
+        raise AssertionError(f"host-fed predict launched K1, K2, K3 {predict_launches}; scores {scores.shape}")
+    eps = [TEST_TASKS / t for t in eval_s]
+    med = float(np.median(eps))
+    return dict(
+        **store_row(store), test=result, launches=launches, launches_per_batch=per_batch,
+        eval_episodes_per_s=eps, eval_episodes_per_s_median=med,
+        eval_batch_ms_median=1e3 * float(np.median(eval_s)) / n_batches,
+        device_store_eval_episodes_per_s_median=device_row["eval_episodes_per_s_median"],
+        device_store_eval_batch_ms_median=device_row["eval_batch_ms_median"],
+        rate_over_device_store=med / device_row["eval_episodes_per_s_median"],
+        h2d_bytes_per_batch=copies["bytes_per_copy"], copy=copies, device_busy_share=prof["device_busy_share"],
+        profile=prof, predict_ms=predict_ms, predict_launches=predict_launches,
+    )
+
+
+def hostfed_multiseg_phase(dev, store, exp_dict, expected, tasks, device_row, profile_run=True):
+    """``multiseg_phase`` on a host store (E as the engine reckons it, the
+    peak over one batch held under its rule, launches per batch asserted),
+    its rate beside ``device_row`` (the device-store phase of this run), and
+    the staged bytes and copy time per batch."""
+    import torch
+
+    with traced_stagers() as traces:
+        out = multiseg_phase(dev, store, exp_dict, expected, tasks, profile_run=profile_run)
+    torch.cuda.synchronize()
+    copies = copy_stats(traces)
+    med = out["eval_episodes_per_s_median"]
+    out.update(
+        **store_row(store), device_store_eval_batch=device_row["eval_batch"],
+        device_store_eval_episodes_per_s_median=device_row["eval_episodes_per_s_median"],
+        rate_over_device_store=med / device_row["eval_episodes_per_s_median"],
+        h2d_bytes_per_batch=copies["bytes_per_copy"], copy=copies,
+        device_busy_share=out["profile"]["device_busy_share"] if profile_run else None,
+    )
+    return out
+
+
+def checksum(t):
+    """An order-free integer checksum of a tensor's bits, equal on any
+    device: the int16/int32 patterns weighted by position, summed in int64."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16).reshape(-1).long()
+    weights = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+    return (bits * weights).sum()
+
+
+def batch_checksums(ep):
+    import torch
+
+    fields = [ep.support, ep.query] + ([ep.query_mask] if ep.query_mask is not None else [])
+    return torch.stack([checksum(x) for x in fields])
+
+
+def staging_integrity_phase(dev, spec_store, wav_store):
+    """Checksums of every batch as it arrives on the card (computed there,
+    on the compute stream, and read back once at the end) for one host-fed
+    train epoch (spec, bf16, E=1, 32 steps) and one host-fed eval run (wav,
+    f16, E=16, 64 tasks, 128 MB a batch), held exactly against the same
+    batches regenerated on the host from the same Generator and staged as
+    the engine stages them on the CPU. A slot refilled before its copy had
+    finished would show here."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.staging import EpisodeStager
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    seen = []
+    stage = EpisodeStager.stage
+
+    def recording(self, store, p):
+        ep = stage(self, store, p)
+        seen.append(batch_checksums(ep))
+        return ep
+
+    out = {}
+    for name, store, exp, run in (
+        ("train_spec_bf16", spec_store, train_exp(episode_batch=1), "train"),
+        ("eval_wav_f16", wav_store, flagship_exp("wav"), "eval"),
+    ):
+        trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=4)
+        before = trainer.gen.get_state()
+        seen.clear()
+        EpisodeStager.stage = recording
+        try:
+            if run == "train":
+                trainer.train_epoch()
+                sizes, is_test = [trainer.episode_batch] * trainer.steps_per_epoch, False
+            else:
+                trainer.test()
+                sizes, is_test = [EVAL_BATCH] * (TEST_TASKS // EVAL_BATCH), False
+        finally:
+            EpisodeStager.stage = stage
+        card = torch.stack(seen).cpu()  # the one read back
+        trainer.gen.set_state(before)
+        rng = trainer.host_rng()  # the Generator the run drew its batches from
+        cpu = EpisodeStager("cpu")
+        host = torch.stack([batch_checksums(cpu.stage(store, store.plan(rng, N_WAY, K_SHOT, K_QUERY, is_test, e)))
+                            for e in sizes])
+        if card.shape != host.shape or not torch.equal(card, host):
+            raise AssertionError(f"staging integrity {name}: card {card.shape} vs host {host.shape}, "
+                                 f"{int((card != host).any(-1).sum()) if card.shape == host.shape else '?'} "
+                                 "batches changed")
+        out[name] = dict(batches=len(sizes), checksums_per_batch=card.shape[1], equal=True)
+    return out
+
+
+def native_pack_phase():
+    """A seeded tree of 35 classes x 40 .npy spec files of 128x157 f32 (112
+    MB, written by ``make_synthetic_dataset``) packed to float32 and
+    bfloat16 by the native packer and by the numpy path
+    (``native_pack.normalize``): equal bit for bit; files/s and GB/s of file
+    data for both (the library built first, its g++ time apart; the native
+    time includes the loader's probe of every header, also timed alone)."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+    from audio_few_shot_learning_tpu_torch.data import native_pack
+    from audio_few_shot_learning_tpu_torch.data.datasets import MetaAudioDataset, make_synthetic_dataset
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    native_pack.get_lib()
+    out = dict(gxx_build_s=time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = make_synthetic_dataset(os.path.join(tmp, "ds"), n_classes=37, items_per_class=40, n_mels=N_MELS,
+                                      n_frames=N_FRAMES, split_fractions=(35, 1, 1))
+        ds = MetaAudioDataset(ExperimentConfig.from_dict({"device": "cpu"}), root, "train")
+        files, gb = len(ds.filepaths), sum(p.stat().st_size for p in ds.filepaths) / 1e9
+        t0 = time.perf_counter()
+        probes = [native_pack.probe(p) for p in ds.filepaths]  # the loader's per-file header check
+        out["probe_s"] = time.perf_counter() - t0
+        if any(p is None for p in probes):
+            raise AssertionError("the packer's probe refused a regular file")
+        for dtype, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+            t0 = time.perf_counter()
+            native = ds._pack_spec_native(dtype)
+            native_s = time.perf_counter() - t0
+            if native is None:
+                raise AssertionError("the native packer refused a regular tree")
+            t0 = time.perf_counter()
+            items = [native_pack.normalize(np.load(p)[None], ds.mean, ds.std) for p in ds.filepaths]
+            numpy_path = torch.from_numpy(np.concatenate(items)).to(dtype)
+            numpy_s = time.perf_counter() - t0
+            if not torch.equal(native[0].view(bits), numpy_path.view(bits)):
+                raise AssertionError(f"native packer and numpy path differ in {dtype}")
+            out[str(dtype).replace("torch.", "")] = dict(
+                files=files, file_gb=gb, bit_equal=True, native_s=native_s, numpy_s=numpy_s,
+                native_files_per_s=files / native_s, numpy_files_per_s=files / numpy_s,
+                native_gb_per_s=gb / native_s, numpy_gb_per_s=gb / numpy_s)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1596,6 +1931,7 @@ def main() -> int:
     from audio_few_shot_learning_tpu_torch.ops import cuda_build
 
     dev = torch.device("cuda:0")
+    started = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -1633,6 +1969,17 @@ def main() -> int:
     print(f"spec train phase, E=8 in chunks of 4 with remat ({card}): " + json.dumps(accum), flush=True)
     if not accum["remat"]:
         raise AssertionError("episode_microbatch 4 should turn remat on")
+    t0 = time.perf_counter()
+    host_store = make_store(dev, host_dtype="bfloat16")
+    print(f"host spec store: {host_store.nbytes() / 1e6:.1f} MB bf16 in host RAM, packed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    host_train = hostfed_train_phase(dev, host_store, train_exp(episode_batch=1), SPEC_LAUNCHES, train)
+    print(f"(a) host-fed spec train phase, E=1 ({card}): " + json.dumps(host_train), flush=True)
+    host_accum = hostfed_train_phase(dev, host_store, train_exp(tasks=24, episode_batch=8, episode_microbatch=4),
+                                     SPEC_LAUNCHES, accum, epochs=1)
+    print(f"(a) host-fed spec train phase, E=8 in chunks of 4 ({card}): " + json.dumps(host_accum), flush=True)
+    host_eval = hostfed_eval_phase(dev, host_store, "spec", SPEC_LAUNCHES, slc)
+    print(f"(b) host-fed spec eval phase, E=16 ({card}): " + json.dumps(host_eval), flush=True)
     apl = train_phase(dev, store, train_exp(loss="apl", tasks=4, episode_batch=1), SPEC_LAUNCHES,
                       epochs=1, profile_steps=2)
     print(f"APL train phase ({card}): " + json.dumps(apl), flush=True)
@@ -1662,6 +2009,9 @@ def main() -> int:
     ms_cmp["seconds"] = time.perf_counter() - t0
     print("multi-segment spec card vs CPU: " + json.dumps(ms_cmp), flush=True)
     del ms_store
+    host_ms = hostfed_multiseg_phase(dev, make_multiseg_store(dev, 35, 40, 6, seed=1, host_dtype="bfloat16"),
+                                     birdclef_dict("cpl"), SPEC_LAUNCHES, TEST_TASKS, ms_flag)
+    print(f"(b) host-fed multi-segment spec phase, flagship, s_max 6 ({card}): " + json.dumps(host_ms), flush=True)
     s36_store = make_multiseg_store(dev, 12, 10, 36, seed=2)
     print(f"s_max 36 store: {s36_store.segments.numel() * 4 / 1e6:.1f} MB", flush=True)
     s36 = {}
@@ -1670,6 +2020,10 @@ def main() -> int:
                                    launches, S36_TASKS)
         print(f"multi-segment spec phase, {name}, s_max 36 ({card}): " + json.dumps(s36[name]), flush=True)
     del s36_store
+    host_s36 = hostfed_multiseg_phase(dev, make_multiseg_store(dev, 12, 10, 36, seed=2, host_dtype="bfloat16"),
+                                      birdclef_dict("cpl", tie_strategy="max_posterior"), SPEC_LAUNCHES, S36_TASKS,
+                                      s36["cpl"], profile_run=False)
+    print(f"(b) host-fed multi-segment spec phase, flagship, s_max 36 ({card}): " + json.dumps(host_s36), flush=True)
 
     t0 = time.perf_counter()
     wav_store = make_wav_store(dev)
@@ -1685,6 +2039,18 @@ def main() -> int:
     wav_train = train_phase(dev, wav_store, train_exp("wav", tasks=4, episode_batch=1), WAV_LAUNCHES,
                             epochs=1, profile_steps=2)
     print(f"wav train phase ({card}): " + json.dumps(wav_train), flush=True)
+    t0 = time.perf_counter()
+    host_wav_store = make_wav_store(dev, host_dtype="float16")
+    print(f"host wav store: {host_wav_store.nbytes() / 1e6:.1f} MB f16 in host RAM, packed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    host_wav_eval = hostfed_eval_phase(dev, host_wav_store, "wav", WAV_LAUNCHES, wav)
+    print(f"(c) host-fed wav eval phase, E=16 ({card}): " + json.dumps(host_wav_eval), flush=True)
+    host_wav_train = hostfed_train_phase(dev, host_wav_store, train_exp("wav", episode_batch=1), WAV_LAUNCHES,
+                                         wav_train)
+    print(f"(c) host-fed wav train phase, E=1 ({card}): " + json.dumps(host_wav_train), flush=True)
+    integrity = staging_integrity_phase(dev, host_store, host_wav_store)
+    print("(d) staging integrity: " + json.dumps(integrity), flush=True)
+    del host_store, host_wav_store
     wa_train = wavaug_train_phase(dev, wav_store)
     print(f"WaveAugment train phase, E=1 ({card}): " + json.dumps(wa_train), flush=True)
     wa = serve_phase(dev, wav_store, "wav", WAV_LAUNCHES, waveaug=WAVEAUG)
@@ -1706,6 +2072,13 @@ def main() -> int:
     mw = multiseg_phase(dev, mw_store, mw_dict, WAV_LAUNCHES, TEST_TASKS)
     print(f"multi-segment wav phase ({card}): " + json.dumps(mw), flush=True)
     t0 = time.perf_counter()
+    host_mw_store = make_multiseg_wav_store(dev, host_dtype="float16")
+    print(f"host multi-segment wav store: {host_mw_store.nbytes() / 1e6:.1f} MB f16, packed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    host_mw = hostfed_multiseg_phase(dev, host_mw_store, mw_dict, WAV_LAUNCHES, TEST_TASKS, mw)
+    print(f"(c) host-fed multi-segment wav phase ({card}): " + json.dumps(host_mw), flush=True)
+    del host_mw_store
+    t0 = time.perf_counter()
     mw_cmp = multiseg_card_vs_cpu_phase(dev, mw_store, mw_dict, "wav")
     mw_cmp["seconds"] = time.perf_counter() - t0
     print("multi-segment wav card vs CPU: " + json.dumps(mw_cmp), flush=True)
@@ -1720,6 +2093,8 @@ def main() -> int:
     k3_wa = k3_wavaug_cases(dev)
     print("K3 at the WaveAugment shapes: " + json.dumps(k3_wa), flush=True)
 
+    packer = native_pack_phase()
+    print("(e) native packer: " + json.dumps(packer), flush=True)
     cli = cli_phase(dev)
     print("raw-audio CLI: " + json.dumps(cli), flush=True)
     train_cli = train_cli_phase()
@@ -1770,6 +2145,9 @@ def main() -> int:
                         launches_per_wavaug_multiseg_batch=mwa["launches_per_batch"][2],
                         in_wavaug_eval_us=wa["eval_profile"]["k3_us_per_launch"], wavaug_cases=k3_wa)),
     ]
+    hostfed = dict(hostfed_train=host_train, hostfed_accum=host_accum, hostfed_eval=host_eval,
+                   hostfed_multiseg_s6=host_ms, hostfed_multiseg_s36=host_s36, hostfed_wav_eval=host_wav_eval,
+                   hostfed_wav_train=host_wav_train, hostfed_multiseg_wav=host_mw)
     kernels = []
     for i, k in enumerate(common):
         r, path = k["row"], k["path"]
@@ -1786,7 +2164,11 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"], bound_by=r["bound_by"],
             library_ms=k["library_ms"], launch_floor_ms=kern["launch_floor_ms"],
             profiler_us_in_eval=k["in_eval_us"], **k["extra"],
+            # per step (train) or per batch (eval) from a host store
+            **{f"launches_per_{name}": row.get("launches_per_step", row.get("launches_per_batch"))[i]
+               for name, row in hostfed.items()},
         ))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

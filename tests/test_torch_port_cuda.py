@@ -404,3 +404,83 @@ def test_waveaugment_and_relation_paths_launch_their_kernels(cuda):
             k.launches = 0
         assert 0.0 <= trainer.test()["mean_accuracy"] <= 1.0
         assert tuple(k.launches for k in kernels) == per_step  # one batch of 2 episodes
+
+
+def _staged_reference(store, batch_args, seed):
+    """The CPU batches a host store's sampler gives for ``batch_args`` from
+    one Generator, as the staging hands them to the model: padded
+    spectrogram rows zeroed, float16 upcast."""
+    rng, out = np.random.default_rng(seed), []
+    for is_test, e in batch_args:
+        ep = store.sample_episode_batch(rng, 3, 2, 2, is_test, e)
+        out.append((ep.support.float(), ep.query.float(), ep.query_mask if is_test and store.multi_segm else None))
+    return out
+
+
+def test_staging_carries_every_batch_unchanged(cuda):
+    """Batches staged through the two pinned slots while the compute stream
+    is kept busy (a sleep kernel after each) arrive on the card unchanged:
+    no slot is refilled while its copy is in flight."""
+    from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
+    from audio_few_shot_learning_tpu_torch.data.staging import EpisodeStager
+    from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
+
+    rng = np.random.default_rng(15)
+    spec = HostStore.pack([rng.standard_normal((int(rng.integers(1, 4)), 64, 80)).astype(np.float32)
+                           for _ in range(30)], np.repeat(np.arange(6), 5), dtype="bfloat16")
+    wav = WavHostStore.pack([(0.3 * rng.standard_normal(int(rng.integers(4000, 30000)))).astype(np.float32)
+                             for _ in range(30)], np.repeat(np.arange(6), 5), multi_segm=True,
+                            segment_seconds=1, sr=8000, dtype="float16")
+    batch_args = [(False, 4), (True, 3), (False, 1), (True, 4), (True, 2), (False, 4), (True, 4), (False, 2)]
+    for store in (spec, wav):
+        stager = EpisodeStager(cuda)
+        gen, got = np.random.default_rng(16), []
+        for is_test, e in batch_args:
+            ep = stager.stage(store, store.plan(gen, 3, 2, 2, is_test, e))
+            got.append((ep.support, ep.query, ep.query_mask))
+            torch.cuda._sleep(2_000_000)  # keep the compute stream busy behind the batch
+        torch.cuda.synchronize()
+        for (sup, qry, mask), (want_s, want_q, want_m) in zip(got, _staged_reference(store, batch_args, 16)):
+            torch.testing.assert_close(sup.float().cpu(), want_s, atol=0, rtol=0)
+            torch.testing.assert_close(qry.float().cpu(), want_q, atol=0, rtol=0)
+            assert (mask is None) == (want_m is None)
+            if mask is not None:
+                torch.testing.assert_close(mask.cpu(), want_m, atol=0, rtol=0)
+        assert stager.h2d_bytes > 0
+
+
+def test_hostfed_train_step_matches_device_fed_on_card(cuda):
+    """A host store's staged batch through one train step on the card gives
+    the device store's step on the same episode and draws."""
+    from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
+    from audio_few_shot_learning_tpu_torch.train.engine import TrainDraws
+
+    rng = np.random.default_rng(17)
+    items = rng.standard_normal((6 * 5, 96, 99)).astype(np.float32)
+    labels = np.repeat(np.arange(6), 5)
+    host = HostStore.pack(list(items), labels)
+    packed = PackedStore.pack(list(items), labels, device=cuda)
+    exp = ExperimentConfig.from_dict({
+        "specaug_params": {"use": True}, "n_training_tasks": 2, "n_way_train": 3, "n_shot_train": 2,
+        "n_query_train": 2, "loss": {"cpl": {"use": True, "m_param": 2, "t_param": 2.0}},
+        "tpu": {"episode_batch": 2, "compute_dtype": "float32"},
+    })
+    mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8}, "Attention": {"embed_dim": 64, "ffn_dim": 64}})
+    a, b = Trainer(exp, mdl, host, seed=2), Trainer(exp, mdl, packed, seed=2)
+    assert a.host_mode and not b.host_mode
+    ep_host = a.stager.stage(host, host.plan(np.random.default_rng(18), 3, 2, 2, False, 2))
+    ep = host.sample_episode_batch(np.random.default_rng(18), 3, 2, 2, False, 2)
+    ep_dev = type(ep)(support=ep.support.to(cuda), support_labels=ep.support_labels.to(cuda),
+                      query=ep.query.to(cuda), query_labels=ep.query_labels.to(cuda))
+    g = torch.Generator(device=cuda).manual_seed(19)
+    draws = TrainDraws(support=draw_views_params(g, exp.specaug_params, 2, 6, 96, 99, cuda),
+                       query=draw_views_params(g, exp.specaug_params, 2, 6, 96, 99, cuda),
+                       perms=torch.stack([torch.randperm(3, device=cuda) + 1 for _ in range(2)]))
+    specaugment.views_cuda.launches = 0
+    ma, mb = a.train_step(ep_host, draws), b.train_step(ep_dev, draws)
+    torch.cuda.synchronize()
+    assert specaugment.views_cuda.launches == 4
+    torch.testing.assert_close(ma, mb, atol=1e-6, rtol=1e-5)
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, atol=1e-6, rtol=1e-5)

@@ -146,6 +146,8 @@ def _imports(path):
 def test_port_imports_nothing_of_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    host_path = {"hoststore.py", "wavhoststore.py", "native_pack.py", "staging.py"}
+    assert host_path <= {p.name for p in files if p.parent.name == "data"}
     bad = [
         f"{path.relative_to(REPO)}: {name}"
         for path in files

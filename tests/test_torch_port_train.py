@@ -54,6 +54,7 @@ from audio_few_shot_learning_tpu.train.engine import Trainer as JaxTrainer
 from audio_few_shot_learning_tpu.train.state import make_optimizer as jax_make_optimizer
 from audio_few_shot_learning_tpu_torch import config as tcfg
 from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+from audio_few_shot_learning_tpu_torch.data.hoststore import HostStore
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
@@ -464,7 +465,9 @@ def test_train_test_cli_completes_a_run(tmp_path):
 
 def test_datasets_match_the_jax_package(tmp_path):
     """The port's synthetic dataset writes the JAX package's files, and the
-    port's loader packs the split the JAX package's numpy path packs."""
+    port's loader packs the split the JAX package packs (both through their
+    native packers, to the bit); ``host_store: true`` gives a HostStore of
+    the same segments."""
     from audio_few_shot_learning_tpu.data.datasets import MetaAudioDataset as JaxDataset
     from audio_few_shot_learning_tpu.data.datasets import make_synthetic_dataset as jax_make
     from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split, make_synthetic_dataset
@@ -476,14 +479,16 @@ def test_datasets_match_the_jax_package(tmp_path):
         b = tmp_path / "port" / a.relative_to(tmp_path / "jax")
         np.testing.assert_array_equal(np.load(b, allow_pickle=True), np.load(a, allow_pickle=True))
     jexp, _, texp, _, _ = configs("small")
-    want = JaxDataset(jexp, tmp_path / "jax", "valid").to_packed_store(use_native=False)
+    want = JaxDataset(jexp, tmp_path / "jax", "valid").to_packed_store()
     got = load_packed_split(texp, tmp_path / "port", "valid", "cpu")
     np.testing.assert_array_equal(got.segments.numpy(), np.asarray(want.segments))
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
     np.testing.assert_array_equal(got.class_counts.numpy(), np.asarray(want.class_counts))
-    with pytest.raises(NotImplementedError, match="host-resident store"):
-        load_packed_split(dataclasses.replace(texp, tpu=dataclasses.replace(texp.tpu, host_store=True)),
-                          tmp_path / "port", "valid", "cpu")
+    host = load_packed_split(dataclasses.replace(texp, tpu=dataclasses.replace(texp.tpu, host_store=True)),
+                             tmp_path / "port", "valid", "cpu")
+    assert isinstance(host, HostStore) and host.is_host_resident
+    np.testing.assert_array_equal(host.segments.numpy(), np.asarray(want.segments))
+    np.testing.assert_array_equal(host.class_counts, np.asarray(want.class_counts))
 
 
 def test_wav_train_step_runs_with_one_view():
