@@ -130,7 +130,8 @@ def main(argv=None):
     from audio_few_shot_learning_tpu_torch.config import load_configs
     from audio_few_shot_learning_tpu_torch.data.store import PackedStore
     from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
-    from audio_few_shot_learning_tpu_torch.train.engine import Trainer, config_device
+    from audio_few_shot_learning_tpu_torch.device import config_device
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
     exp, mdl = load_configs(args.experiment_config, args.model_config)
     device = config_device(exp)

@@ -6,6 +6,8 @@ from typing import Union
 
 import torch
 
+from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """``device`` if given, else card 0. Raises rather than running on the
@@ -17,3 +19,11 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
             "in the experiment config to run on the CPU"
         )
     return device
+
+
+def config_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
+    """``device`` if given, else the CPU when the config says ``"cpu"``, else
+    the card ``exp.gpu_index``; raises as ``resolve_device`` does."""
+    if device is None:
+        device = "cpu" if exp.device == "cpu" else f"cuda:{exp.gpu_index}"
+    return resolve_device(device)

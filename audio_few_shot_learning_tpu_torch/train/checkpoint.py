@@ -1,6 +1,4 @@
-"""Checkpoints of the PyTorch package (its own format; the JAX package's
-flax msgpack files are not read, its weights cross over through
-``train/weights.py::from_jax_variables``).
+"""Checkpoints of the PyTorch package, and the JAX package's model files.
 
 * ``model.ckpt``: the best-by-validation model's ``state_dict`` (the
   reference checkpoint's keys, so it is also a reference ``model.pt``);
@@ -11,6 +9,13 @@ flax msgpack files are not read, its weights cross over through
 
 Files are written with ``torch.save`` and hold tensors and plain Python
 data only, so they load with ``weights_only=True``.
+
+The JAX package names its model file ``model.ckpt`` too, but writes it as
+flax msgpack (``{"params": ..., "batch_stats": ...}``). ``save_jax_model``
+and ``load_jax_model`` write and read that format through
+``utils/msgpack_codec.py`` and the weight bridge (``train/weights.py``);
+``load_model`` given such a file raises and names
+``cli/convert_checkpoint.py``, which converts between the two.
 """
 
 from __future__ import annotations
@@ -19,7 +24,11 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+from audio_few_shot_learning_tpu_torch.train.weights import from_jax_variables, to_jax_variables
+from audio_few_shot_learning_tpu_torch.utils import msgpack_codec
 
 
 def _cpu(tree):
@@ -43,9 +52,52 @@ def save_model(path: str, model: torch.nn.Module) -> None:
     _save(_cpu(model.state_dict()), path)
 
 
+def is_jax_model_file(path: str) -> bool:
+    """Whether ``path`` holds flax msgpack (the JAX package's ``model.ckpt``)
+    rather than a ``torch.save`` file, by its first bytes."""
+    with open(path, "rb") as f:
+        return msgpack_codec.is_msgpack_map(f.read(16))
+
+
 def load_model(path: str, model: torch.nn.Module) -> None:
+    if is_jax_model_file(path):
+        raise ValueError(
+            f"{path} is a JAX package checkpoint (flax msgpack), not a torch state_dict; read it "
+            "with train/checkpoint.py::load_jax_model or convert it with "
+            "python -m audio_few_shot_learning_tpu_torch.cli.convert_checkpoint"
+        )
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state, strict=True)
+
+
+def save_jax_model(path: str, state_dict: Dict[str, torch.Tensor], exp) -> None:
+    """``state_dict`` as the JAX package's ``model.ckpt`` for ``exp``'s
+    model: flax msgpack of ``{"params": ..., "batch_stats": ...}``, which
+    its ``train/checkpoint.py::load_model`` reads."""
+    data = msgpack_codec.packb(to_jax_variables(state_dict, exp))  # sorted keys, as flax writes them
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def _float32_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _float32_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):  # a bfloat16 leaf
+        return tree.to(torch.float32).numpy()
+    return np.asarray(tree, np.float32)
+
+
+def load_jax_model(path: str) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``model.ckpt`` at ``path`` as this package's
+    ``state_dict`` (``load_state_dict(strict=True)`` takes it)."""
+    with open(path, "rb") as f:
+        payload = msgpack_codec.unpackb(f.read())
+    if not (isinstance(payload, dict) and set(payload) == {"params", "batch_stats"}):
+        raise ValueError(f"{path} holds no {{'params', 'batch_stats'}} map: not a JAX package model file")
+    return from_jax_variables(_float32_leaves(payload))
 
 
 def save_resume(path: str, trainer, epoch: int, extra: Optional[Dict[str, Any]] = None) -> None:

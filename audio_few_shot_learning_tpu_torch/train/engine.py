@@ -71,7 +71,7 @@ from audio_few_shot_learning_tpu_torch.data.staging import EpisodeStager
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
-from audio_few_shot_learning_tpu_torch.device import resolve_device
+from audio_few_shot_learning_tpu_torch.device import config_device
 from audio_few_shot_learning_tpu_torch.losses import angular_loss, cpl_loss, fsl_loss
 from audio_few_shot_learning_tpu_torch.models.encoders import torch_dtype
 from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
@@ -80,6 +80,7 @@ from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augmen
 from audio_few_shot_learning_tpu_torch.ops.waveaugment import ChainDraws, WaveAugment
 from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy
 from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
+from audio_few_shot_learning_tpu_torch.utils.profiling import profile_trace
 
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
 Store = Union[PackedStore, PackedWavStore, HostStore, WavHostStore]
@@ -203,14 +204,6 @@ class _StepClock:
 
 def is_host_resident(store) -> bool:
     return getattr(store, "is_host_resident", False)
-
-
-def config_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
-    """``device`` if given, else the CPU when the config says ``"cpu"``, else
-    the card ``exp.gpu_index``; raises as ``resolve_device`` does."""
-    if device is None:
-        device = "cpu" if exp.device == "cpu" else f"cuda:{exp.gpu_index}"
-    return resolve_device(device)
 
 
 class Trainer:
@@ -482,6 +475,12 @@ class Trainer:
             out["cpl_loss"] = float("nan")  # the reference reports NaN (loops/loops.py:59)
         out["episodes_per_sec"] = self.steps_per_epoch * self.episode_batch / self.last_epoch_seconds
         return out
+
+    def profile_epoch(self, log_dir: str) -> Dict[str, float]:
+        """One ``train_epoch`` under a ``torch.profiler`` trace written into
+        ``log_dir`` (``utils/profiling.py::profile_trace``); its metrics."""
+        with profile_trace(log_dir, device=self.device):
+            return self.train_epoch()
 
     def validate(self) -> Tuple[float, float]:
         exp = self.exp

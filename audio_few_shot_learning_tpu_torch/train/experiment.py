@@ -23,9 +23,10 @@ import torch
 
 from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
 from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split
+from audio_few_shot_learning_tpu_torch.device import config_device
 from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
 from audio_few_shot_learning_tpu_torch.train.early_stopping import EarlyStopping
-from audio_few_shot_learning_tpu_torch.train.engine import Trainer, config_device
+from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 from audio_few_shot_learning_tpu_torch.utils import EpisodeThroughput, MetricsLogger
 
 

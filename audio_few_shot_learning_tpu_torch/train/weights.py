@@ -1,11 +1,12 @@
-"""The weight bridge from the JAX package's flax variables to this package.
+"""The weight bridge between the JAX package's flax variables and this package.
 
 The port's modules carry the reference checkpoint's names, so its
 ``state_dict`` is a reference ``model.pt``: such a file (or the JAX
 package's ``export_reference_state_dict``) loads with ``strict=True``.
-``from_jax_variables`` is the one bridge from a flax ``{"params",
-"batch_stats"}`` tree, given as nested dicts of numpy arrays (no JAX
-needed), to that ``state_dict``. ``build_mapping`` is this package's own
+``from_jax_variables`` takes a flax ``{"params", "batch_stats"}`` tree,
+given as nested dicts of numpy arrays (no JAX needed), to that
+``state_dict``; ``to_jax_variables`` is its inverse (the JAX package's
+``import_reference_state_dict``). ``build_mapping`` is this package's own
 copy of the leaf mapping in the JAX package's ``train/torch_interop.py``.
 
 Layout transforms (flax -> torch): conv kernels ``[kh, kw, I, O]`` ->
@@ -20,6 +21,7 @@ model's head BatchNorm (``bn_grouped``) maps to ``logits.1`` like the plain one.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -42,6 +44,23 @@ def _to_torch(a: np.ndarray, kind) -> np.ndarray:
         if tag == "head_matrix":  # flax [(m,C), out] -> torch [out, (C,m)]
             out = a.shape[1]
             return np.ascontiguousarray(a.reshape(m, c, out).transpose(2, 1, 0)).reshape(out, m * c)
+        raise ValueError(f"unknown kind {kind!r}")
+    return a
+
+
+def _to_flax(a: np.ndarray, kind) -> np.ndarray:
+    """The inverse of ``_to_torch``."""
+    if kind == "conv_kernel":
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+    if kind == "matrix":
+        return np.ascontiguousarray(np.transpose(a))
+    if isinstance(kind, tuple):
+        tag, m, c = kind
+        if tag == "head_vector":  # torch (C, m) order -> flax (m, C) order
+            return np.ascontiguousarray(a.reshape(c, m).T).reshape(-1)
+        if tag == "head_matrix":  # torch [out, (C,m)] -> flax [(m,C), out]
+            out = a.shape[0]
+            return np.ascontiguousarray(a.reshape(out, c, m).transpose(2, 1, 0)).reshape(m * c, out)
         raise ValueError(f"unknown kind {kind!r}")
     return a
 
@@ -162,3 +181,71 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[f"projection_head.{ln}.weight"] = torch.ones(width)
         sd[f"projection_head.{ln}.bias"] = torch.zeros(width)
     return sd
+
+
+# the reference's dead state, which the flax tree has no slot for
+_DEAD_SUFFIXES = ("num_batches_tracked",)
+_DEAD_PREFIXES = ("projection_head.ln1.", "projection_head.ln2.")
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _skeleton(sd: Dict[str, np.ndarray], exp) -> Dict[str, Any]:
+    """The parts of the flax tree that ``build_mapping`` reads, from the
+    state_dict's keys: conv blocks, recurrent layers and directions,
+    attention, the relation head, and the head BatchNorm's name
+    (``bn_grouped`` under ``tpu.bn_per_view_group``) and width."""
+    bk: Dict[str, Any] = {}
+    params: Dict[str, Any] = {"backbone": bk}
+    for key, val in sd.items():
+        m = re.fullmatch(r"backbone\.encoder\.conv_encoder\.(\d+)\.0\.weight", key)
+        if m:
+            _set(bk, ("ConvEncoder_0", f"block{m.group(1)}", "kernel"), np.empty(_to_flax(val, "conv_kernel").shape))
+        m = re.fullmatch(r"backbone\.encoder\.seq_layers\.weight_ih_l(\d+)(_reverse)?", key)
+        if m:
+            _set(bk, ("seq_layers", f"l{m.group(1)}_{'bwd' if m.group(2) else 'fwd'}"), {})
+        if key.startswith("attention_model."):
+            params["attention"] = {}
+        if key.startswith("relation_head."):
+            params["relation"] = {}
+    if "ConvEncoder_0" not in bk:
+        raise KeyError("the state_dict has no backbone.encoder.conv_encoder weights")
+    bn = "bn_grouped" if exp.tpu.bn_per_view_group else "BatchNorm_0"
+    head_bn = sd["backbone.encoder.logits.1.weight"]
+    _set(bk, ("_LogitsHead_0", bn, "scale"), np.empty(head_bn.shape))
+    return {"params": params, "batch_stats": {}}
+
+
+def to_jax_variables(state_dict: Dict[str, Any], exp) -> Dict[str, Any]:
+    """This package's ``state_dict`` (a reference ``model.pt``) -> the flax
+    ``{"params", "batch_stats"}`` tree of the JAX package's model for
+    ``exp``, as nested dicts of float32 numpy arrays with sorted keys.
+
+    The tree's structure comes from the state_dict's keys and
+    ``exp.tpu.bn_per_view_group``; each leaf is the inverse of its
+    ``from_jax_variables`` transform. The reference's dead state
+    (``num_batches_tracked``, ``projection_head.ln1/ln2``) is dropped. Every
+    other key must find a slot, and every slot a key."""
+    sd = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v) for k, v in state_dict.items()}
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    used = set()
+    for coll, path, rkey, kind in build_mapping(_skeleton(sd, exp)):
+        if rkey not in sd:
+            raise KeyError(f"the state_dict is missing {rkey!r} (for {coll}/{'/'.join(path)})")
+        _set(out[coll], path, _to_flax(np.asarray(sd[rkey], np.float32), kind))
+        used.add(rkey)
+    stray = sorted(k for k in sd if k not in used and not k.endswith(_DEAD_SUFFIXES)
+                   and not k.startswith(_DEAD_PREFIXES))
+    if stray:
+        raise ValueError(f"state_dict keys with no slot in the flax tree: {stray}")
+    return _sorted(out)

@@ -1,6 +1,6 @@
-"""Metrics logging and the episodes/s counter (the PyTorch package's own
-copy of the JAX package's ``utils/logging.py`` and ``EpisodeThroughput``):
-every epoch row lands in a JSONL file, optionally echoed to stdout."""
+"""Metrics logging (the PyTorch package's own copy of the JAX package's
+``utils/logging.py``): every epoch row lands in a JSONL file, optionally
+echoed to stdout."""
 
 from __future__ import annotations
 
@@ -33,18 +33,3 @@ class MetricsLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
-
-
-class EpisodeThroughput:
-    """Exponentially smoothed episodes/s."""
-
-    def __init__(self, alpha: float = 0.3):
-        self.alpha = alpha
-        self.value: Optional[float] = None
-        self.total_episodes = 0
-
-    def update(self, episodes: int, seconds: float) -> float:
-        eps = episodes / max(seconds, 1e-9)
-        self.total_episodes += episodes
-        self.value = eps if self.value is None else self.alpha * eps + (1 - self.alpha) * self.value
-        return self.value

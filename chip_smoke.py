@@ -11,8 +11,9 @@ Imports nothing of JAX or of the JAX package. In order it:
    ``build/torch_kernels/``, and prints their registers and spills;
 3. kernel phase: times the launch floor (one trivial kernel), then holds K1
    (SpecAugment 4-view emitter), K2 (episode head, at the spec and wav eval
-   batches, a predict episode and a ragged case, on inputs as the path gives
-   them, asserting that one call runs K2 and nothing else on the device) and
+   batches, a predict episode, a ragged case and the classifier API's
+   support and query encodes, on inputs as the path gives them, asserting
+   that one call runs K2 and nothing else on the device) and
    K3 (mel filterbank + log, both flavours, at the wav eval batch, a predict
    episode, ragged row counts and bases that are not 16-byte aligned)
    against their plain PyTorch versions on the card, and times kernel, plain
@@ -140,7 +141,31 @@ Imports nothing of JAX or of the JAX package. In order it:
    batches regenerated on the host from the same Generator; (e) the native
    packer: a seeded tree of 1 400 spec files packed to float32 and bfloat16
    by the packer and by the numpy path, bit-equal, files/s and GB/s of both;
-24. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+24. entry points, after the ``cli.train_test`` phase, in a directory under
+   ``build/``: (a) ``cli.make_synthetic_dataset.main`` writes a 15-class
+   128x157 set (5 classes per split) and ``cli.run_sweep.main`` runs
+   ``configs/esc50_apl.json`` + ``configs/model_config_esc50.json`` on it
+   over ``--key angle --values 0 30 --runs 2`` (2 epochs x 16 tasks at E=1,
+   32 test tasks, bf16): launches per train step K1 2, K2 1, K3 0 (each
+   step's counts read around it), the folders ``esc50_apl_angle=0`` and
+   ``=30`` with ``result_run0/1.json``, and
+   ``cli.aggregate_results.main([root, "--sweep", "angle", "--json"])``
+   giving 2 groups of 2 runs whose accuracies are the result files' and
+   above 0.4; (b) one sweep folder's ``model.ckpt`` through
+   ``cli.convert_checkpoint`` to the JAX package's format and back: every
+   tensor bit-equal but the BatchNorm counters (dead state the JAX format
+   lacks: back as 0), ``Trainer.test()`` (64 tasks, E=16, one seed) on both
+   weights with equal accuracy and one batch's scores within 1e-6, and
+   ``train/checkpoint.py::load_model`` refusing the JAX file; (c) the
+   classifier API on those weights: the views of one 5-way 5-shot 25-query
+   episode by K1 from fixed draws, ``PrototypicalNetworks``'
+   ``process_support_set`` and call against the model's own forward (K2)
+   on the same views (scores within 1e-3, equal argmax; K2 once per encode
+   call), the same in float32 card vs CPU (1e-3, argmax >= 99%), and
+   ``ContrastivePrototypicalNetworks.contrastive_forward`` with a fixed
+   permutation; (d) ``Trainer.profile_epoch`` over 8 steps writes a Chrome
+   trace that names K1's and K2's kernels;
+25. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -377,16 +402,22 @@ def kernel_phase(dev):
     # support and queries are slices of the attention output [E, S+Q, D],
     # labels int64 expanded over the episodes (stride 0). Flagship spec E=16,
     # S=Q=25, D=V*64=256, N=5; the wav path's D=64 (one view); a predict
-    # episode (E=1); a ragged case (N=7, uneven classes, one empty class).
+    # episode (E=1); a ragged case (N=7, uneven classes, one empty class);
+    # the classifier API's one-row dummy episodes: a support encode (S=25,
+    # Q=1: the q_tile=1 plan) and a query encode (S=1, Q=25, N=1).
     k2 = []
-    for name, n_way, labels_np, e, d in (
-        ("flagship", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT), EVAL_BATCH, 4 * 64),
-        ("wav", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT), EVAL_BATCH, 64),
-        ("predict", N_WAY, np.repeat(np.arange(N_WAY), K_SHOT), 1, 4 * 64),
+    support = np.repeat(np.arange(N_WAY), K_SHOT)
+    queries = N_WAY * K_QUERY
+    for name, n_way, labels_np, e, d, q in (
+        ("flagship", N_WAY, support, EVAL_BATCH, 4 * 64, queries),
+        ("wav", N_WAY, support, EVAL_BATCH, 64, queries),
+        ("predict", N_WAY, support, 1, 4 * 64, queries),
         ("ragged", 7, np.array([0] * 9 + [1] * 2 + [2] * 5 + [3] * 1 + [4] * 4 + [5] * 4),
-         EVAL_BATCH, 4 * 64),
+         EVAL_BATCH, 4 * 64, queries),
+        ("classifier support encode", N_WAY, support, 1, 4 * 64, 1),
+        ("classifier query encode", 1, np.zeros(1, np.int64), 1, 4 * 64, queries),
     ):
-        s, q = len(labels_np), N_WAY * K_QUERY
+        s = len(labels_np)
         fused = torch.randn((e, s + q, d), generator=gen, device=dev)
         sup, qry = fused[:, :s], fused[:, s:]
         lab = torch.as_tensor(labels_np, device=dev).expand(e, -1)
@@ -407,7 +438,8 @@ def kernel_phase(dev):
         flops = e * (s * d + q * n_way * 2 * d + q * 2 * d + n_way * 3 * d)
         # labels: the S distinct int64 values the expanded tensor holds
         b_ms, b_by = bound_ms(nbytes(sup, qry, out) + lab.untyped_storage().nbytes(), flops)
-        k2.append(dict(case=name, e=e, d=d, n_way=n_way, max_abs_err=err,
+        q_tile = protohead.head_plan(e, s, q, d, n_way).q_tile
+        k2.append(dict(case=name, e=e, s=s, q=q, d=d, n_way=n_way, q_tile=q_tile, max_abs_err=err,
                        tolerance=[K2_ATOL, K2_RTOL], device_ops_per_call=device_ops, ms=ms,
                        plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by))
     rows["K2"] = k2
@@ -1061,6 +1093,276 @@ def train_cli_phase():
     if not (launches[0] > 0 and launches[1] > 0):
         raise AssertionError(f"cli.train_test launched K1, K2, K3 {launches} times")
     return dict(result=result, results=results, wall_s=seconds, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# entry points: the sweep and aggregation CLIs, checkpoint conversion, the
+# classifier API and profiling
+# ---------------------------------------------------------------------------
+
+SWEEP_VALUES = ("0", "30")
+SWEEP_RUNS = 2
+CLASSIFIER_ATOL = 1e-3  # the classifier's plain head vs the model's forward (K2), same views
+ROUND_TRIP_SCORE_ATOL = 1e-6
+PROFILE_STEPS = 8
+
+
+@contextlib.contextmanager
+def step_launches(trainer_cls, kernels, out: list):
+    """Record each ``train_step``'s launches of every kernel in ``out``,
+    read off the counters before and after the step."""
+    step = trainer_cls.train_step
+
+    def counted(self, ep, draws=None):
+        before = [k.launches for k in kernels]
+        metrics = step(self, ep, draws)
+        out.append([k.launches - b for k, b in zip(kernels, before)])
+        return metrics
+
+    trainer_cls.train_step = counted
+    try:
+        yield out
+    finally:
+        trainer_cls.train_step = step
+
+
+def sweep_exp_dict(data_root) -> dict:
+    """``configs/esc50_apl.json`` pointed at the synthetic set: 2 epochs x 16
+    tasks at E=1, 32 test tasks, bf16."""
+    with open(os.path.join(REPO, "configs", "esc50_apl.json")) as f:
+        d = json.load(f)
+    d.update(dataset_name="synth", data_root=data_root, num_epochs=2, n_training_tasks=16,
+             n_testing_tasks=32, tpu={"episode_batch": 1, "eval_episode_batch": EVAL_BATCH,
+                                      "compute_dtype": "bfloat16"})
+    return d
+
+
+def entry_points_phase(dev):
+    """(a) ``cli.make_synthetic_dataset`` and ``cli.run_sweep`` (APL angle 0
+    and 30, 2 runs each) read back by ``cli.aggregate_results``; (b)
+    ``cli.convert_checkpoint`` to the JAX format and back, and ``test()``
+    on both; (c) the classifier API on the trained weights; (d)
+    ``Trainer.profile_epoch``."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.cli import (
+        aggregate_results, convert_checkpoint, make_synthetic_dataset, run_sweep,
+    )
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, load_configs
+    from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.models.classifier_api import (
+        ContrastivePrototypicalNetworks, PrototypicalNetworks,
+    )
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params, spec_augment_views
+    from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    kernels = kernel_counters()
+    out = {}
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        # (a) synthetic data, the sweep, the aggregation
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_synthetic_dataset.main(["--root", os.path.join(tmp, "synth"), "--n-classes", "15",
+                                         "--items-per-class", "15", "--splits", "5", "5", "5"])
+        exp_json, mdl_json = os.path.join(tmp, "exp.json"), os.path.join(REPO, "configs", "model_config_esc50.json")
+        with open(exp_json, "w") as f:
+            json.dump(sweep_exp_dict(tmp), f)
+        root = os.path.join(tmp, "experiments")
+        data_s = time.perf_counter() - t0
+        for k in kernels:
+            k.launches = 0
+        per_step = []
+        t0 = time.perf_counter()
+        with step_launches(Trainer, kernels, per_step), contextlib.redirect_stdout(io.StringIO()):
+            run_sweep.main(["-e", exp_json, "-m", mdl_json, "--key", "angle", "--values", *SWEEP_VALUES,
+                            "--runs", str(SWEEP_RUNS), "--experiments-root", root])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches = [k.launches for k in kernels]
+        bad = [n for n in per_step if n != SPEC_LAUNCHES]
+        steps_expected = len(SWEEP_VALUES) * SWEEP_RUNS * 2 * 16
+        if bad or len(per_step) != steps_expected:
+            raise AssertionError(f"sweep train steps launched K1, K2, K3 {bad[:3]} (of {len(per_step)} "
+                                 f"steps, {steps_expected} expected); expected {SPEC_LAUNCHES} each")
+        folders = sorted(os.listdir(root))
+        want_folders = sorted(f"esc50_apl_angle={v}" for v in SWEEP_VALUES)
+        if folders != want_folders:
+            raise AssertionError(f"sweep folders {folders}, expected {want_folders}")
+        results = {}
+        for name in folders:
+            files = os.listdir(os.path.join(root, name))
+            for i in range(SWEEP_RUNS):
+                if f"result_run{i}.json" not in files:
+                    raise AssertionError(f"{name} has no result_run{i}.json: {sorted(files)}")
+            results[name] = []
+            for i in range(SWEEP_RUNS):
+                with open(os.path.join(root, name, f"result_run{i}.json")) as f:
+                    results[name].append(json.load(f))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sw = aggregate_results.main([root, "--sweep", "angle", "--json"])
+        summary = aggregate_results.collect(root)
+        aggregate_s = time.perf_counter() - t0
+        if sorted(sw["groups"]) != sorted(f"{float(v)}" for v in SWEEP_VALUES) or any(
+                g["runs"] != SWEEP_RUNS for g in sw["groups"].values()):
+            raise AssertionError(f"aggregate_results --sweep angle gave {sw}")
+        for name, runs in results.items():
+            accs = [r["mean_accuracy"] for r in runs]
+            if summary[name]["run_accuracies"] != accs:
+                raise AssertionError(f"{name}: aggregated {summary[name]['run_accuracies']}, files {accs}")
+            if not all(a > 0.4 for a in accs):
+                raise AssertionError(f"{name}: test accuracies {accs} not above 0.4")
+        out["sweep"] = dict(
+            data_s=data_s, sweep_s=sweep_s, aggregate_s=aggregate_s, train_steps=len(per_step),
+            launches_per_step=per_step[0], launches=sweep_launches, groups=sw["groups"],
+            run_accuracies={k: v["run_accuracies"] for k, v in summary.items()},
+            train_episodes_per_s={k: [r["train_episodes_per_sec"] for r in v] for k, v in results.items()},
+            train_seconds={k: [r["train_seconds"] for r in v] for k, v in results.items()},
+        )
+
+        # (b) the checkpoint round trip through the JAX format
+        t0 = time.perf_counter()
+        src = os.path.join(root, want_folders[0], "model.ckpt")
+        cfg = ["-e", os.path.join(root, want_folders[0], "exp.json"), "-m", mdl_json]
+        with open(os.path.join(root, want_folders[0], "config.json")) as f:
+            swept = json.load(f)["experiment"]
+        exp_d = sweep_exp_dict(tmp)
+        exp_d["loss"] = swept["loss"]
+        exp_d["n_testing_tasks"] = TEST_TASKS
+        with open(cfg[1], "w") as f:
+            json.dump(exp_d, f)
+        jax_file, back_file = os.path.join(tmp, "jax_model.ckpt"), os.path.join(tmp, "back.ckpt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            dirs = [convert_checkpoint.main(cfg + ["--input", src, "--output", jax_file]),
+                    convert_checkpoint.main(cfg + ["--input", jax_file, "--output", back_file])]
+        if dirs != ["to-jax", "from-jax"]:
+            raise AssertionError(f"convert_checkpoint took the directions {dirs}")
+        original = torch.load(src, weights_only=True)
+        back = torch.load(back_file, weights_only=True)
+        counters = sorted(k for k in original if k.endswith("num_batches_tracked"))
+        differ = [k for k in original if k not in counters and not (
+            back[k].dtype == original[k].dtype and torch.equal(back[k], original[k]))]
+        if set(back) != set(original) or differ:
+            raise AssertionError(f"round trip changed {differ[:5]} (keys equal: {set(back) == set(original)})")
+        if any(back[k].item() != 0 for k in counters):
+            raise AssertionError("the BatchNorm counters should come back as 0")
+        exp, mdl = load_configs(cfg[1], mdl_json)
+        try:
+            ckpt.load_model(jax_file, torch.nn.Linear(1, 1))
+            raise AssertionError("load_model read a JAX package file")
+        except ValueError as err:
+            if "convert_checkpoint" not in str(err):
+                raise
+        test_store = load_packed_split(exp, os.path.join(tmp, "synth"), "test", dev)
+        trainers = []
+        for sd in (original, back):
+            trainer = Trainer(exp, mdl, test_store, test_store=test_store, seed=0, device=dev)
+            trainer.model.load_state_dict(sd, strict=True)
+            trainers.append(trainer)
+        tested, test_launches = [], []
+        for trainer in trainers:
+            for k in kernels:
+                k.launches = 0
+            tested.append(trainer.test()["mean_accuracy"])
+            test_launches.append([k.launches for k in kernels])
+        if tested[0] != tested[1]:
+            raise AssertionError(f"round-tripped weights test at {tested[1]}, the original at {tested[0]}")
+        if test_launches[0] != [n * TEST_TASKS // EVAL_BATCH for n in SPEC_LAUNCHES]:
+            raise AssertionError(f"test() launched K1, K2, K3 {test_launches[0]} times")
+        scores = []
+        for trainer in trainers:
+            gen = torch.Generator(device=dev).manual_seed(3)
+            with torch.inference_mode():
+                ep = sample_episode(gen, test_store, N_WAY, K_SHOT, K_QUERY, EVAL_BATCH)
+                scores.append(trainer._episode_scores(ep, N_WAY, True, gen).float())
+        score_err = float((scores[0] - scores[1]).abs().max())
+        if not score_err <= ROUND_TRIP_SCORE_ATOL:
+            raise AssertionError(f"round-tripped scores differ by {score_err}")
+        out["checkpoint"] = dict(
+            seconds=time.perf_counter() - t0, tensors_equal=len(original) - len(counters),
+            counters_reset=len(counters), jax_file_bytes=os.path.getsize(jax_file), test_accuracy=tested,
+            test_launches=test_launches, score_max_abs_err=score_err, tolerance=ROUND_TRIP_SCORE_ATOL,
+        )
+
+        # (c) the classifier API on the trained weights
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(4)
+        with torch.inference_mode():
+            ep = sample_episode(gen, test_store, N_WAY, K_SHOT, K_QUERY, 1)
+        params = exp.specaug_params
+        f_len, t_len = ep.support.shape[-2:]
+        n_items = N_WAY * K_SHOT
+        draws = [draw_views_params(gen, params, 1, n_items, f_len, t_len, dev) for _ in range(2)]
+        for k in kernels:
+            k.launches = 0
+        sup_v = spec_augment_views(ep.support, None, params, draws=draws[0])[0]
+        qry_v = spec_augment_views(ep.query, None, params, draws=draws[1])[0]
+        labels = ep.support_labels[0]
+        view_launches = [k.launches for k in kernels]
+        clf = PrototypicalNetworks(exp, mdl, state_dict=original, device=dev)
+        encode = []
+        for call in (lambda: clf.process_support_set(sup_v, labels), lambda: clf(qry_v)):
+            before = [k.launches for k in kernels]
+            result = call()
+            encode.append([k.launches - b for k, b in zip(kernels, before)])
+        clf_scores = result.float()
+        with torch.inference_mode():
+            model_scores = clf.model(sup_v, qry_v, labels, N_WAY).scores.float()
+        clf_err = float((clf_scores - model_scores).abs().max())
+        if not (clf_err <= CLASSIFIER_ATOL and torch.equal(clf_scores.argmax(-1), model_scores.argmax(-1))):
+            raise AssertionError(f"classifier scores {clf_err} off the model's forward, or another argmax")
+        if view_launches != [2, 0, 0] or any(n != [0, 1, 0] for n in encode):
+            raise AssertionError(f"views launched {view_launches}, encode calls {encode}")
+        exp32 = dataclasses.replace(exp, tpu=dataclasses.replace(exp.tpu, compute_dtype="float32"))
+        pair = []
+        for device in (dev, "cpu"):
+            c = PrototypicalNetworks(exp32, mdl, state_dict=original, device=device)
+            c.process_support_set(sup_v.to(device), labels.to(device))
+            pair.append(c(qry_v.to(device)).float().cpu())
+        f32_err = float((pair[0] - pair[1]).abs().max())
+        agree = float((pair[0].argmax(-1) == pair[1].argmax(-1)).float().mean())
+        if not (f32_err <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE):
+            raise AssertionError(f"float32 classifier card vs CPU: {f32_err}, argmax agreement {agree}")
+        con = ContrastivePrototypicalNetworks(exp, mdl, state_dict=original, device=dev)
+        con.process_support_set(sup_v, labels)
+        perm = torch.tensor([3, 1, 2])
+        feats, protos = con.contrastive_forward(qry_v, True, perm=perm)
+        shapes = [list(feats.shape), list(protos.shape)]
+        if shapes != [[N_WAY * K_QUERY, mdl.projection.output_dim], [N_WAY, mdl.projection.output_dim]] or not (
+                torch.isfinite(feats).all() and torch.isfinite(protos).all()):
+            raise AssertionError(f"contrastive_forward gave shapes {shapes} or non-finite values")
+        out["classifier"] = dict(
+            seconds=time.perf_counter() - t0, view_launches=view_launches, launches_per_encode_call=encode,
+            scores_max_abs_err_vs_forward=clf_err, tolerance=CLASSIFIER_ATOL, compute_dtype=exp.tpu.compute_dtype,
+            float32_card_vs_cpu_max_abs_err=f32_err, float32_argmax_agreement=agree,
+            accuracy=float((clf_scores.argmax(-1) == ep.query_labels[0]).float().mean()),
+            contrastive_shapes=shapes,
+        )
+
+        # (d) profiling
+        t0 = time.perf_counter()
+        prof_d = sweep_exp_dict(tmp)
+        prof_d["n_training_tasks"] = PROFILE_STEPS
+        prof_exp = ExperimentConfig.from_dict(prof_d)
+        train_store = load_packed_split(prof_exp, os.path.join(tmp, "synth"), "train", dev)
+        trainer = Trainer(prof_exp, mdl, train_store, seed=0, device=dev)
+        log_dir = os.path.join(tmp, "profile")
+        metrics = trainer.profile_epoch(log_dir)
+        traces = [n for n in os.listdir(log_dir) if n.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"profile_epoch wrote {traces}")
+        with open(os.path.join(log_dir, traces[0])) as f:
+            text = f.read()
+        names = {"views_kernel": text.count("views_kernel"), "episode_scores_kernel": text.count("episode_scores_kernel")}
+        if not all(names.values()) or not np.isfinite(metrics["loss"]):
+            raise AssertionError(f"the trace names K1 and K2 {names} times; metrics {metrics}")
+        out["profile"] = dict(seconds=time.perf_counter() - t0, steps=trainer.steps_per_epoch,
+                              trace_mb=len(text) / 1e6, kernel_name_mentions=names, metrics=metrics)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2099,6 +2401,9 @@ def main() -> int:
     print("raw-audio CLI: " + json.dumps(cli), flush=True)
     train_cli = train_cli_phase()
     print("cli.train_test: " + json.dumps(train_cli), flush=True)
+    entry = entry_points_phase(dev)
+    for name, row in entry.items():
+        print(f"entry points, {name} ({card}): " + json.dumps(row), flush=True)
     prep = preprocess_phase(dev)
     print(f"preprocessing + multi-segment cli.train_test ({card}): " + json.dumps(prep), flush=True)
 
@@ -2167,6 +2472,8 @@ def main() -> int:
             # per step (train) or per batch (eval) from a host store
             **{f"launches_per_{name}": row.get("launches_per_step", row.get("launches_per_batch"))[i]
                for name, row in hostfed.items()},
+            launches_per_sweep_train_step=entry["sweep"]["launches_per_step"][i],
+            launches_per_classifier_encode_call=entry["classifier"]["launches_per_encode_call"][0][i],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

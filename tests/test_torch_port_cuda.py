@@ -109,6 +109,21 @@ def test_protohead_kernel_matches_plain_at_multiseg_shapes(cuda, e, s_max, d):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
 
 
+# the classifier API's one-row dummy episodes: a support encode (one query
+# row, the q_tile=1 plan) and a query encode (one support row, one class)
+@pytest.mark.parametrize("s,q,n_way,q_tile", [(25, 1, 5, 1), (1, 25, 1, 8)])
+def test_protohead_kernel_matches_plain_at_classifier_shapes(cuda, s, q, n_way, q_tile):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    fused = torch.randn((1, s + q, 256), generator=gen, device=cuda)
+    sup, qry = fused[:, :s], fused[:, s:]
+    lab = (torch.arange(s, device=cuda) % n_way).expand(1, -1)
+    assert protohead.head_plan(1, s, q, 256, n_way).q_tile == q_tile
+    out = protohead.episode_scores_cuda(sup, lab, qry, n_way)
+    ref = protohead.batched_episode_scores_reference(sup, lab, qry, n_way)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
 def test_protohead_call_launches_one_kernel(cuda, label_dtype):
     from torch.profiler import ProfilerActivity, profile
@@ -484,3 +499,62 @@ def test_hostfed_train_step_matches_device_fed_on_card(cuda):
     torch.testing.assert_close(ma, mb, atol=1e-6, rtol=1e-5)
     for pa, pb in zip(a.model.parameters(), b.model.parameters()):
         torch.testing.assert_close(pa, pb, atol=1e-6, rtol=1e-5)
+
+
+def test_classifier_api_on_card_matches_cpu(cuda):
+    """The classifier API on the card (views by K1, each encode call one K2
+    launch) against the same weights and views on the CPU, float32."""
+    from audio_few_shot_learning_tpu_torch.models.classifier_api import PrototypicalNetworks
+
+    exp = ExperimentConfig.from_dict({"specaug_params": {"use": True}, "tpu": {"compute_dtype": "float32"}})
+    mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8}})
+    rng = np.random.default_rng(21)
+    sup = torch.from_numpy(rng.standard_normal((1, 15, 96, 99)).astype(np.float32)).to(cuda)
+    qry = torch.from_numpy(rng.standard_normal((1, 10, 96, 99)).astype(np.float32)).to(cuda)
+    labels = np.repeat(np.arange(5), 3)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = 0
+    sup_v = specaugment.spec_augment_views(sup, gen, exp.specaug_params)[0]
+    qry_v = specaugment.spec_augment_views(qry, gen, exp.specaug_params)[0]
+    card = PrototypicalNetworks(exp, mdl, generator=torch.Generator().manual_seed(4))
+    card.process_support_set(sup_v, labels)
+    scores = card(qry_v)
+    torch.cuda.synchronize()
+    assert scores.device.type == "cuda"
+    assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (2, 2)
+    cpu = PrototypicalNetworks(exp, mdl, state_dict=card.model.state_dict(), device="cpu")
+    cpu.process_support_set(sup_v.cpu(), labels)
+    want = cpu(qry_v.cpu())
+    torch.testing.assert_close(scores.cpu(), want, atol=1e-3, rtol=0)
+    assert (scores.argmax(-1).cpu() == want.argmax(-1)).float().mean() >= 0.99
+
+
+def test_jax_model_file_tests_on_card(cuda, tmp_path):
+    """A JAX package model file (written by ``save_jax_model``) read back by
+    ``load_jax_model`` into a Trainer that tests on the card."""
+    from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
+    from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
+
+    rng = np.random.default_rng(22)
+    items = rng.standard_normal((6 * 4, 96, 99)).astype(np.float32)
+    store = PackedStore.pack(list(items), np.repeat(np.arange(6), 4), device=cuda)
+    exp = ExperimentConfig.from_dict({
+        "specaug_params": {"use": True}, "n_testing_tasks": 4, "test_query_augmentations": True,
+        "n_way_test": 3, "n_shot_test": 2, "n_query_test": 2, "tpu": {"eval_episode_batch": 2},
+    })
+    mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8}})
+    torch.manual_seed(0)
+    source = FewShotEpisodeModel(exp, mdl, (96, 99))
+    path = str(tmp_path / "model.ckpt")
+    ckpt.save_jax_model(path, source.state_dict(), exp)
+    with pytest.raises(ValueError, match="convert_checkpoint"):
+        ckpt.load_model(path, source)
+    trainer = Trainer(exp, mdl, store, test_store=store)
+    trainer.model.load_state_dict(ckpt.load_jax_model(path), strict=True)
+    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = 0
+    result = trainer.test()
+    assert 0.0 <= result["mean_accuracy"] <= 1.0
+    assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (4, 2)
+    for key, value in source.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            assert torch.equal(trainer.model.state_dict()[key].cpu(), value), key

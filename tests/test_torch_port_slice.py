@@ -27,7 +27,7 @@ from audio_few_shot_learning_tpu_torch.train.weights import from_jax_variables
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "audio_few_shot_learning_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "pandas", "audio_few_shot_learning_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes", "pandas", "audio_few_shot_learning_tpu"}
 SCORE_ATOL = 1e-3
 N_WAY, K_SHOT, K_QUERY = 3, 2, 2
 
@@ -148,6 +148,10 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10
     host_path = {"hoststore.py", "wavhoststore.py", "native_pack.py", "staging.py"}
     assert host_path <= {p.name for p in files if p.parent.name == "data"}
+    entry_points = {"utils/msgpack_codec.py", "ops/util_functions.py", "models/classifier_api.py",
+                    "utils/profiling.py", "cli/convert_checkpoint.py", "cli/aggregate_results.py",
+                    "cli/run_sweep.py", "cli/make_synthetic_dataset.py"}
+    assert entry_points <= {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
     bad = [
         f"{path.relative_to(REPO)}: {name}"
         for path in files
