@@ -13,8 +13,9 @@ Each value gets its own experiment folder (``<base>_<leaf>=<value>``),
 written by ``train/experiment.py::run_experiment``, so
 ``aggregate_results --sweep`` reads the grid back at any time; the sweep
 table is printed at the end from the same aggregation code. The runs take
-the card unless the config says ``"device": "cpu"``, one process on one
-device.
+the card unless the config says ``"device": "cpu"``; under ``torchrun
+--nproc_per_node W`` with ``"tpu": {"mesh_shape": W}`` every run is
+data-parallel over W ranks, and rank 0 writes and prints.
 """
 
 from __future__ import annotations
@@ -73,11 +74,14 @@ def main(argv=None):
         sweep,
     )
     from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
+    from audio_few_shot_learning_tpu_torch.parallel.mesh import maybe_initialize_distributed, process_rank
     from audio_few_shot_learning_tpu_torch.train import experiment
 
     dotted = _SWEEP_SHORTHAND.get(args.key, args.key)
     with open(args.experiment_config) as f:
         base_exp = json.load(f)
+    maybe_initialize_distributed(backend="gloo" if base_exp.get("device") == "cpu" else None)
+    main = process_rank() == 0
     with open(args.model_config) as f:
         mdl = ModelConfig.from_dict(json.load(f))
     if args.data_root:
@@ -92,13 +96,15 @@ def main(argv=None):
         exp_dict["experiment_folder"] = f"{base_folder}_{leaf}={value}"
         exp = ExperimentConfig.from_dict(exp_dict)
         exp.validate()
-        print(f"=== sweep {dotted} = {value} -> {exp.experiment_folder} ===")
+        if main:
+            print(f"=== sweep {dotted} = {value} -> {exp.experiment_folder} ===")
         experiment.run_experiment(
             exp, mdl, experiments_root=args.experiments_root, num_runs=args.runs
         )
 
     sw = sweep(collect(args.experiments_root), dotted)
-    print_sweep(sw)
+    if main:
+        print_sweep(sw)
     return sw
 
 

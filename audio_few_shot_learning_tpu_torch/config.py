@@ -17,8 +17,10 @@ one JSON file drives both packages; here ``episode_batch``,
 ``store_dtype``, ``fold_bn_eval``, ``eval_segment_budget``,
 ``bn_per_view_group``, ``seed`` and ``num_runs`` take effect, as does
 ``host_store`` (true keeps the splits in host RAM, false on the card, null
-picks by size); a ``mesh_shape`` above 1 raises (a later slice), and
-``use_pallas``, which names TPU machinery, is accepted and inert.
+picks by size), and ``mesh_shape``, the world size of a data-parallel run:
+it must equal that of the initialised process group (``torchrun``), and
+above 1 without one it raises. ``use_pallas``, which names TPU machinery,
+is accepted and inert.
 ``device`` selects the card (anything but ``"cpu"``) or the CPU.
 """
 
@@ -136,8 +138,10 @@ class TPUConfig:
         ``episode_batch=1`` reproduces that exactly, larger values average the
         gradient over E episodes per step (documented deviation, the headline
         throughput lever).
-    mesh_shape: devices along the ``episode`` data-parallel mesh axis.
-        None = use all local devices.
+    mesh_shape: ranks along the ``episode`` data-parallel mesh axis, one
+        process and one card each: the world size, checked against the
+        initialised process group (``torchrun --nproc_per_node W``). None =
+        the group's world, or one process without a group.
     compute_dtype: "bfloat16" (default, MXU-native) or "float32".
     use_pallas: route hot ops through Pallas kernels (auto-disabled off-TPU).
     """

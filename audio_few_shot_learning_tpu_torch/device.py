@@ -5,8 +5,10 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 from audio_few_shot_learning_tpu_torch.config import ExperimentConfig
+from audio_few_shot_learning_tpu_torch.parallel.mesh import local_rank
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -23,7 +25,14 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 
 def config_device(exp: ExperimentConfig, device: Union[str, torch.device, None] = None) -> torch.device:
     """``device`` if given, else the CPU when the config says ``"cpu"``, else
-    the card ``exp.gpu_index``; raises as ``resolve_device`` does."""
+    the card ``exp.gpu_index``, or in a process group of more than one rank
+    this rank's card, ``cuda:LOCAL_RANK``; raises as ``resolve_device``
+    does."""
     if device is None:
-        device = "cpu" if exp.device == "cpu" else f"cuda:{exp.gpu_index}"
+        if exp.device == "cpu":
+            device = "cpu"
+        elif dist.is_initialized() and dist.get_world_size() > 1:
+            device = f"cuda:{local_rank()}"
+        else:
+            device = f"cuda:{exp.gpu_index}"
     return resolve_device(device)

@@ -30,6 +30,15 @@ full-resolution activations; the recompute leaves the running statistics
 alone, so they move once per forward, as in the JAX package. Dropout draws
 from the generator the caller passes down (``models/dropout.py``).
 
+On a mesh of more than one rank (``mesh`` set on the module, by
+``FewShotEpisodeModel.set_mesh``) train mode normalizes with the moments of
+the global batch, as XLA reduces them over the JAX package's episode mesh:
+each rank's count, mean and biased variance are combined across the ranks
+(``mesh_batch_norm``). The recompute of a rematerialized block issues that
+collective again, on every rank in the same order. The grouped path's
+statistics belong to (episode, view) groups that lie on one rank, so it
+issues none, nor does eval mode.
+
 Module names follow the reference checkpoint (``backbone.encoder.
 conv_encoder.{i}.{0,1}``, ``backbone.encoder.seq_layers``,
 ``backbone.encoder.logits.{1,2}``), so a reference ``state_dict`` loads with
@@ -48,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from audio_few_shot_learning_tpu_torch.config import CNNConfig, HybridConfig
 from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
 from audio_few_shot_learning_tpu_torch.ops.rnn import Recurrent
+from audio_few_shot_learning_tpu_torch.parallel.mesh import CrossRankBatchNorm, EpisodeMesh
 
 NUM_BLOCKS = 4
 ViewGroups = Tuple[int, int, int, int]  # (S, Vs, Q, Vq) of a fused support-then-query batch
@@ -113,6 +123,28 @@ def grouped_batch_norm(
     return x * inv.to(x.dtype) + shift.to(x.dtype)
 
 
+def mesh_batch_norm(
+    bn: nn.modules.batchnorm._BatchNorm,
+    x: torch.Tensor,
+    mesh: EpisodeMesh,
+    update_stats: bool,
+    unbiased_running: bool,
+) -> torch.Tensor:
+    """Train-mode BatchNorm of this rank's rows ``x [B, C, ...]`` with the
+    per-channel float32 moments of every rank's rows, differentiable across
+    the ranks (``CrossRankBatchNorm``). With ``update_stats`` the running
+    statistics move by momentum towards the global mean and the global
+    variance, unbiased by the global count (``unbiased_running``) or biased."""
+    y, mean, var, total = CrossRankBatchNorm.apply(x, bn.weight, bn.bias, mesh, bn.eps)
+    if update_stats:
+        with torch.no_grad():
+            running_var = var * (total / (total - 1).clamp_min(1)).to(var.dtype) if unbiased_running else var
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(running_var, bn.momentum)
+            bn.num_batches_tracked.add_(1)
+    return y
+
+
 class BandwidthBatchNorm(nn.BatchNorm2d):
     """BatchNorm of the conv blocks (momentum 0.1, eps 1e-5).
 
@@ -120,8 +152,12 @@ class BandwidthBatchNorm(nn.BatchNorm2d):
     the unbiased one into the running variance; ``update_stats=False``
     normalizes the same way and leaves the running statistics and
     ``num_batches_tracked`` alone (the recompute of a rematerialized block).
-    Eval: ``x * inv + shift`` with ``inv`` and ``shift`` computed in float32
-    from the running statistics and applied in the activation's dtype."""
+    On a mesh (``mesh`` set) the statistics are the global batch's
+    (``mesh_batch_norm``). Eval: ``x * inv + shift`` with ``inv`` and
+    ``shift`` computed in float32 from the running statistics and applied in
+    the activation's dtype."""
+
+    mesh: Optional[EpisodeMesh] = None
 
     def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-channel float32 ``(inv, shift)`` of the eval affine."""
@@ -133,6 +169,8 @@ class BandwidthBatchNorm(nn.BatchNorm2d):
     ) -> torch.Tensor:
         if self.training and view_groups is not None:
             return grouped_batch_norm(self, x, view_groups, update_stats)
+        if self.training and self.mesh is not None:
+            return mesh_batch_norm(self, x, self.mesh, update_stats, unbiased_running=True)
         if self.training:
             running = (self.running_mean, self.running_var)
             if update_stats:
@@ -150,13 +188,18 @@ class HeadBatchNorm(nn.BatchNorm1d):
     variance and moves the running variance towards that same biased
     variance (torch's own BatchNorm1d would take the unbiased one). With
     ``view_groups`` (``tpu.bn_per_view_group``) train mode takes the grouped
-    path instead, the JAX package's ``bn_grouped``."""
+    path instead, the JAX package's ``bn_grouped``; on a mesh (``mesh``
+    set) the global batch's statistics (``mesh_batch_norm``)."""
+
+    mesh: Optional[EpisodeMesh] = None
 
     def forward(self, x: torch.Tensor, view_groups: Optional[ViewGroups] = None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if view_groups is not None:
             return grouped_batch_norm(self, x, view_groups)
+        if self.mesh is not None:
+            return mesh_batch_norm(self, x, self.mesh, update_stats=True, unbiased_running=False)
         var, mean = torch.var_mean(x, dim=0, correction=0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)

@@ -19,7 +19,9 @@ With ``relation_head`` the scores are the relation MLP's logits over
 ``[query ; prototype]`` pairs instead (JAX ``protonets.py:165-179``), the
 prototypes still one-hot class means; K2 does not run. With
 ``tpu.bn_per_view_group`` the backbone's BatchNorms get the batch's
-``(S, Vs, Q, Vq)`` layout (JAX ``protonets.py:137-141``).
+``(S, Vs, Q, Vq)`` layout (JAX ``protonets.py:137-141``). On a mesh of
+more than one rank (``set_mesh``) its train-mode BatchNorms take the
+moments of the global batch.
 
 Children are named as the reference model (``backbone``,
 ``attention_model``, ``projection_head``), so its ``state_dict`` loads with
@@ -36,10 +38,11 @@ from torch import nn
 
 from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
 from audio_few_shot_learning_tpu_torch.models.attention import SelfAttention
-from audio_few_shot_learning_tpu_torch.models.encoders import make_backbone
+from audio_few_shot_learning_tpu_torch.models.encoders import BandwidthBatchNorm, HeadBatchNorm, make_backbone
 from audio_few_shot_learning_tpu_torch.models.projection import ProjectionHead, RelationHead
 from audio_few_shot_learning_tpu_torch.ops.protohead import batched_episode_scores, compute_prototypes
 from audio_few_shot_learning_tpu_torch.ops.specaugment import NUM_VIEWS
+from audio_few_shot_learning_tpu_torch.parallel.mesh import EpisodeMesh
 
 
 @dataclasses.dataclass
@@ -83,6 +86,13 @@ class FewShotEpisodeModel(nn.Module):
         self.projection_head = ProjectionHead(dataclasses.replace(mdl.projection, input_dim=width))
         if exp.relation_head:
             self.relation_head = RelationHead(mdl.relation, 2 * width)
+
+    def set_mesh(self, mesh: Optional[EpisodeMesh]) -> None:
+        """Hand ``mesh`` to every BatchNorm; one rank (or None) keeps the
+        single-process path."""
+        for m in self.modules():
+            if isinstance(m, (BandwidthBatchNorm, HeadBatchNorm)):
+                m.mesh = mesh if mesh is not None and mesh.world > 1 else None
 
     def forward(
         self,

@@ -4,8 +4,9 @@
   reference checkpoint's keys, so it is also a reference ``model.pt``);
 * ``resume_run{i}.ckpt`` + ``.meta.json``: everything a resumed run needs to
   replay the rest of the run: the model, the optimizer, the schedule's step
-  count, the trainer's generator state, and (in the meta file) the epoch and
-  the early-stopping counters.
+  count, the generator state of every rank of the trainer's mesh (``[W, n]``
+  bytes; rank 0 writes the files), and (in the meta file) the epoch and the
+  early-stopping counters.
 
 Files are written with ``torch.save`` and hold tensors and plain Python
 data only, so they load with ``weights_only=True``.
@@ -102,12 +103,19 @@ def load_jax_model(path: str) -> Dict[str, torch.Tensor]:
 
 def save_resume(path: str, trainer, epoch: int, extra: Optional[Dict[str, Any]] = None) -> None:
     """The trainer's full training state after ``epoch``; ``extra`` (plain
-    JSON data, e.g. the early-stopping counters) goes to the meta file."""
+    JSON data, e.g. the early-stopping counters) goes to the meta file. On
+    a mesh every rank calls it (the generator states are gathered) and
+    rank 0 writes."""
+    mesh = trainer.mesh
+    state = trainer.gen.get_state()
+    generators = mesh.gather(state[None].long(), [mesh.rank], mesh.world).to("cpu", torch.uint8)
+    if mesh.rank != 0:
+        return
     payload = {
         "model": _cpu(trainer.model.state_dict()),
         "optimizer": _cpu(trainer.optimizer.state_dict()),
         "step": int(trainer.step),
-        "generator": trainer.gen.get_state(),
+        "generator": generators,
     }
     _save(payload, path)
     with open(path + ".meta.json", "w") as f:
@@ -115,11 +123,18 @@ def save_resume(path: str, trainer, epoch: int, extra: Optional[Dict[str, Any]] 
 
 
 def load_resume(path: str, trainer) -> Dict[str, Any]:
-    """Restore ``trainer`` from ``save_resume``'s files; returns the meta."""
+    """Restore ``trainer`` from ``save_resume``'s files, each rank its own
+    generator; returns the meta. The checkpoint must come from a run of as
+    many ranks."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    generators = payload["generator"]
+    if generators.dim() == 1:  # written before checkpoints held one state per rank
+        generators = generators[None]
+    if len(generators) != trainer.mesh.world:
+        raise ValueError(f"{path} resumes a run of {len(generators)} ranks, not {trainer.mesh.world}")
     trainer.model.load_state_dict(payload["model"], strict=True)
     trainer.optimizer.load_state_dict(payload["optimizer"])
     trainer.step = int(payload["step"])
-    trainer.gen.set_state(payload["generator"])
+    trainer.gen.set_state(generators[trainer.mesh.rank].clone())
     with open(path + ".meta.json") as f:
         return json.load(f)

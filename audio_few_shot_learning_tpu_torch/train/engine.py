@@ -48,10 +48,24 @@ package seeds its host Generator from its run key instead; like the device
 sampler's, the draws differ between the packages (a documented RNG
 deviation), the semantics do not.
 
+Data parallelism (``tpu.mesh_shape`` W > 1, or a ``mesh`` from
+``parallel/mesh.py``; the JAX package's episode mesh): W ranks, one process
+each in an initialised process group, each take E/W of every step's
+episodes (with ``episode_microbatch``, their share of every chunk), drawn
+from their own generator. Train-mode BatchNorm normalizes with moments over
+the global batch (``parallel/mesh.py::CrossRankBatchNorm``), the gradients and
+metrics are averaged over the ranks once per optimizer step, and every rank
+takes the same Adam step. Eval splits every batch over the ranks (a
+multi-segment batch: each rank takes the E its own card holds) and gathers
+exactly ``n_tasks`` accuracies, the same on every rank. Rank r seeds its
+generator with ``seed + 1 + r * RANK_SEED_STRIDE``; rank 0 of one rank seeds
+as a run without a mesh does, and reproduces it. ``tpu.mesh_shape`` above 1
+outside a process group raises.
+
 The engine runs on the card unless the caller asks for the CPU, through
 ``device="cpu"`` or the config's ``"device": "cpu"``; with no card and no
-such request it raises. Of the configurations the JAX package's ``Trainer``
-takes, it refuses only a mesh of more than one device (``tpu.mesh_shape``).
+such request it raises. It takes every configuration the JAX package's
+``Trainer`` takes.
 """
 
 from __future__ import annotations
@@ -78,6 +92,7 @@ from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeMod
 from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
 from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
 from audio_few_shot_learning_tpu_torch.ops.waveaugment import ChainDraws, WaveAugment
+from audio_few_shot_learning_tpu_torch.parallel.mesh import EpisodeMesh, make_mesh
 from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy
 from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
 from audio_few_shot_learning_tpu_torch.utils.profiling import profile_trace
@@ -85,6 +100,7 @@ from audio_few_shot_learning_tpu_torch.utils.profiling import profile_trace
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
 Store = Union[PackedStore, PackedWavStore, HostStore, WavHostStore]
 METRIC_NAMES = ("loss", "fsl_loss", "cpl_loss")
+RANK_SEED_STRIDE = 2**32  # rank r's generator: seed + 1 + r * stride (runs take seed + i)
 
 # Multi-segment eval batch on the card. Block 0's conv output (channels x
 # F x T in the compute dtype per encoder item, 2.57 MB in bf16 at 128x157)
@@ -202,6 +218,16 @@ class _StepClock:
         return [1e3 * (b - a) for a, b in pairs]
 
 
+def fill_shares(n: int, caps: Sequence[int]) -> List[int]:
+    """Episodes each rank takes of an eval batch of ``n``: as many as its
+    ``caps`` entry allows, rank by rank, until the batch is spread."""
+    shares = []
+    for cap in caps:
+        shares.append(min(cap, n))
+        n -= shares[-1]
+    return shares
+
+
 def is_host_resident(store) -> bool:
     return getattr(store, "is_host_resident", False)
 
@@ -218,15 +244,19 @@ class Trainer:
         test_store: Optional[Store] = None,
         seed: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
+        mesh: Optional[EpisodeMesh] = None,
     ):
-        if exp.tpu.mesh_shape is not None and exp.tpu.mesh_shape > 1:
-            raise NotImplementedError(
-                f"tpu.mesh_shape={exp.tpu.mesh_shape}: data parallelism over more than one "
-                "device is not ported; the engine runs on one device")
+        """``mesh`` (default ``make_mesh(tpu.mesh_shape)``) gives this rank
+        and the process group; with it, ``device`` defaults to its device."""
         self.is_wav = exp.input_type == "wav"
         self.exp = exp
         self.mdl = mdl
-        self.device = config_device(exp, device)
+        if mesh is None:
+            self.device = config_device(exp, device)
+            mesh = make_mesh(exp.tpu.mesh_shape, self.device)
+        else:
+            self.device = config_device(exp, mesh.device if device is None else device)
+        self.mesh = mesh
         self.train_store = train_store
         self.host_mode = is_host_resident(train_store)
         self._stager: Optional[EpisodeStager] = None
@@ -243,6 +273,9 @@ class Trainer:
                 f"episode_microbatch={self.microbatch} must divide "
                 f"episode_batch={self.episode_batch}"
             )
+        for name, n in (("episode_batch", self.episode_batch), ("episode_microbatch", self.microbatch)):
+            if n is not None and n % mesh.world:
+                raise ValueError(f"{name}={n} must divide over the mesh's {mesh.world} ranks")
         self.steps_per_epoch = -(-exp.n_training_tasks // self.episode_batch)
         self.aux_loss = exp.use_contrastive and (exp.loss.cpl.use or exp.loss.angular.use)
         if self.is_wav:
@@ -258,7 +291,9 @@ class Trainer:
             torch.manual_seed(seed)
             model = FewShotEpisodeModel(exp, mdl, self.feat_shape)
         self.model = model.to(self.device).eval()
-        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.mesh.broadcast_(list(self.model.state_dict().values()))
+        self.model.set_mesh(self.mesh)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1 + mesh.rank * RANK_SEED_STRIDE)
         self.optimizer = make_optimizer(self.model.parameters(), exp.lr)
         self.step = 0  # optimizer updates taken; drives the schedule
         self.last_eval_seconds: Optional[float] = None
@@ -432,10 +467,16 @@ class Trainer:
         metrics ``[loss, fsl_loss, cpl_loss]`` on the device (no host
         synchronization). With ``episode_microbatch`` the batch goes through
         in chunks: gradients and metrics are averaged over the chunks, and
-        each chunk's forward moves the BatchNorm statistics."""
+        each chunk's forward moves the BatchNorm statistics.
+
+        On a mesh of W ranks ``ep`` is this rank's share of the global batch
+        (``EpisodeMesh.chunk_shard`` of it, with chunks), each chunk holding
+        ``episode_microbatch / W`` of its episodes; the gradients and
+        metrics are averaged over the ranks after the last chunk."""
         self.model.train()
         e = ep.support.shape[0]
-        size = self.microbatch if self.microbatch and self.microbatch < e else e
+        chunk = self.microbatch // self.mesh.world if self.microbatch else e
+        size = chunk if chunk < e else e
         chunks = e // size
         self.optimizer.zero_grad(set_to_none=True)
         metrics = None
@@ -444,6 +485,8 @@ class Trainer:
             total, m = self._loss_and_metrics(_slice_tree(ep, sl), _slice_tree(draws, sl))
             (total / chunks).backward()
             metrics = m if metrics is None else metrics + m
+        metrics = metrics / chunks
+        self.mesh.all_reduce_mean_([p.grad for p in self.model.parameters() if p.grad is not None] + [metrics])
         exp = self.exp
         lr = scheduled_lr(
             self.step, exp.lr, exp.scheduler_milestones, exp.scheduler_gamma, self.steps_per_epoch
@@ -452,12 +495,13 @@ class Trainer:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        return metrics / chunks
+        return metrics
 
     def train_epoch(self) -> Dict[str, float]:
         """``steps_per_epoch`` steps of ``episode_batch`` episodes sampled from
         the train store (host-fed for a host store: the JAX package's
-        ``_run_epoch_hostfed``); the metrics are read back once, at the end."""
+        ``_run_epoch_hostfed``), each rank of a mesh sampling its share; the
+        metrics are read back once, at the end."""
         exp = self.exp
         clock = _StepClock(self.device)
         per_step = []
@@ -465,7 +509,7 @@ class Trainer:
         batches = self._batches(self.train_store, exp.n_way_train, exp.n_shot_train, exp.n_query_train)
         clock.mark()
         for _ in range(self.steps_per_epoch):
-            per_step.append(self.train_step(batches(self.episode_batch)))
+            per_step.append(self.train_step(batches(self.episode_batch // self.mesh.world)))
             clock.mark()
         means = torch.stack(per_step).mean(dim=0).tolist()  # the epoch's one synchronization
         self.last_epoch_seconds = time.perf_counter() - t0
@@ -605,7 +649,6 @@ class Trainer:
             self.exp.tpu.compute_dtype, chain_rows, chain_row_bytes,
         )
 
-    @torch.inference_mode()
     def evaluate(
         self,
         store: Store,
@@ -617,12 +660,37 @@ class Trainer:
         multisegment: bool = False,
         tie_strategy: str = "",
     ) -> Tuple[float, float]:
-        """Mean and std of per-task accuracy over ``n_tasks`` episodes; with
-        ``multisegment``, of the majority votes of each query item's
-        segments under ``tie_strategy``. The accuracies are read back once,
-        at the end; ``last_eval_batch`` holds the episodes per batch. A host
-        store feeds the batches from the host (the JAX package's host-fed
-        eval), with one host Generator for the call."""
+        """Mean and std of per-task accuracy over ``n_tasks`` episodes
+        (``eval_accuracies``)."""
+        acc = self.eval_accuracies(store, n_tasks, n_way, k_shot, k_query, augment_query, multisegment,
+                                   tie_strategy)
+        return float(acc.mean()), float(acc.std())
+
+    @torch.inference_mode()
+    def eval_accuracies(
+        self,
+        store: Store,
+        n_tasks: int,
+        n_way: int,
+        k_shot: int,
+        k_query: int,
+        augment_query: bool,
+        multisegment: bool = False,
+        tie_strategy: str = "",
+    ) -> np.ndarray:
+        """Accuracy of each of ``n_tasks`` episodes; with ``multisegment``,
+        of the majority votes of each query item's segments under
+        ``tie_strategy``. The accuracies are read back once, at the end;
+        ``last_eval_batch`` holds the episodes per batch on this device. A
+        host store feeds the batches from the host (the JAX package's
+        host-fed eval), with one host Generator for the call.
+
+        On a mesh every batch is split over the ranks, each sampling its
+        share: a single-segment batch of ``eval_episode_batch`` evenly, a
+        multi-segment batch as each rank's card holds (``eval_batch_size``
+        on every rank); the last batch fills the ranks in order, and a rank
+        left without episodes still joins the gather. Every rank returns
+        the same ``n_tasks`` accuracies, batch by batch in rank order."""
         self.model.eval()
         eligible = int((store.class_counts >= k_shot + k_query).sum())
         if eligible < n_way:
@@ -630,22 +698,30 @@ class Trainer:
                 f"only {eligible} classes have {k_shot + k_query} items; {n_way}-way needs {n_way}"
             )
         batch = self.eval_batch_size(store, n_tasks, n_way, k_shot, k_query, augment_query, multisegment)
-        self.last_eval_batch = batch
+        mesh = self.mesh
+        if multisegment:
+            caps = mesh.gather(torch.tensor([batch]), [mesh.rank], mesh.world).tolist()
+        else:
+            caps = mesh.shares(batch)
+        self.last_eval_batch = caps[mesh.rank]
         t0 = time.perf_counter()
         batches = self._batches(store, n_way, k_shot, k_query, is_test=multisegment)
-        accs = []
-        remaining = n_tasks
-        while remaining > 0:  # the last batch takes what remains
-            size = min(batch, remaining)
-            ep = batches(size)
-            accs.append(self._eval_episodes(
-                ep, n_way, augment_query, store=store, multisegment=multisegment,
-                tie_strategy=tie_strategy, s_max=store.s_max,
-            ))
-            remaining -= size
-        acc = torch.cat(accs).cpu().numpy()
+        accs, positions = [], []
+        done = 0
+        while done < n_tasks:  # the last batch takes what remains
+            shares = fill_shares(n_tasks - done, caps)
+            lo, size = done + sum(shares[: mesh.rank]), shares[mesh.rank]
+            if size:
+                accs.append(self._eval_episodes(
+                    batches(size), n_way, augment_query, store=store, multisegment=multisegment,
+                    tie_strategy=tie_strategy, s_max=store.s_max,
+                ))
+                positions.extend(range(lo, lo + size))
+            done += sum(shares)
+        local = torch.cat(accs) if accs else torch.zeros(0, device=self.device)
+        acc = mesh.gather(local, positions, n_tasks).cpu().numpy()
         self.last_eval_seconds = time.perf_counter() - t0
-        return float(acc.mean()), float(acc.std())
+        return acc
 
     def test(self) -> Dict[str, float]:
         exp = self.exp

@@ -8,6 +8,14 @@ resume checkpoint after every epoch (model, optimizer, schedule, generator,
 epoch and early-stopping counters), a per-epoch JSONL metrics log, an
 episodes/s counter, and a divergence guard that stops a run whose loss goes
 non-finite and keeps a crash checkpoint of it.
+
+On a mesh of W ranks (``tpu.mesh_shape``, under ``torchrun``) every rank
+runs this flow on its own device and rank 0 alone writes ``config.json``,
+``model.ckpt``, the resume and crash checkpoints, ``result_run{i}.json`` and
+the metrics log, and logs. Early stopping and the divergence guard read
+values that are equal on every rank (metrics averaged, accuracies
+gathered), so the ranks stop together; every rank reloads the best
+checkpoint once rank 0 has written it.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
 from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split
 from audio_few_shot_learning_tpu_torch.device import config_device
+from audio_few_shot_learning_tpu_torch.parallel.mesh import make_mesh
 from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
 from audio_few_shot_learning_tpu_torch.train.early_stopping import EarlyStopping
 from audio_few_shot_learning_tpu_torch.train.engine import Trainer
@@ -43,17 +52,21 @@ def run_single_training(
     resume: bool = False,
 ) -> Dict:
     """Train one model to early stopping; leaves the best weights in
-    ``trainer.model`` and returns the training log."""
+    ``trainer.model`` and returns the training log. On a mesh every rank
+    calls it; rank 0 writes and logs."""
     exp = trainer.exp
+    main = trainer.mesh.rank == 0
+    log_fn = log_fn if main else _quiet
     model_path = os.path.join(results_dir, "model.ckpt")
     resume_path = os.path.join(results_dir, f"resume_run{run_idx}.ckpt")
     metrics_path = os.path.join(results_dir, f"metrics_run{run_idx}.jsonl")
-    os.makedirs(results_dir, exist_ok=True)
+    if main:
+        os.makedirs(results_dir, exist_ok=True)
 
     stopper = EarlyStopping(
         patience=exp.patience,
         verbose=True,
-        save_fn=lambda: ckpt.save_model(model_path, trainer.model),
+        save_fn=(lambda: ckpt.save_model(model_path, trainer.model)) if main else None,
         trace_func=log_fn,
     )
     start_epoch = 1
@@ -64,7 +77,7 @@ def run_single_training(
         log_fn(f"Resumed run {run_idx} from epoch {meta['epoch']}")
 
     history: List[Dict] = []
-    metrics_log = MetricsLogger(metrics_path, stdout=False)
+    metrics_log = MetricsLogger(metrics_path if main else None, stdout=False)
     throughput = EpisodeThroughput()
     try:
         for epoch in range(start_epoch, exp.num_epochs + 1):
@@ -100,6 +113,7 @@ def run_single_training(
     finally:
         metrics_log.close()
 
+    trainer.mesh.barrier()  # rank 0 has written the best checkpoint
     ckpt.load_model(model_path, trainer.model)  # the best checkpoint (loops/loops.py:163-167)
     return {
         "history": history,
@@ -119,26 +133,30 @@ def run_experiment(
     device: Union[str, torch.device, None] = None,
 ) -> List[Dict]:
     """The reference flow: load the three splits, then ``num_runs`` x (train
-    -> test); writes ``config.json`` and ``result_run{i}.json``."""
+    -> test); writes ``config.json`` and ``result_run{i}.json``. On a mesh
+    (``tpu.mesh_shape``) every rank calls it and loads the splits onto its
+    own device; rank 0 writes and logs."""
     device = config_device(exp, device)
+    mesh = make_mesh(exp.tpu.mesh_shape, device)
+    main = mesh.rank == 0
+    log_fn = log_fn if main else _quiet
     dataset_path = os.path.join(exp.data_root, exp.dataset_name)
-    log_fn(f"Loading Dataset:::  {exp.dataset_name}, Device:::  {device}")
+    log_fn(f"Loading Dataset:::  {exp.dataset_name}, Device:::  {device}, ranks:::  {mesh.world}")
     train_store = load_packed_split(exp, dataset_path, "train", device)
     val_store = load_packed_split(exp, dataset_path, "valid", device)
     test_store = load_packed_split(exp, dataset_path, "test", device)
 
     results_dir = os.path.join(experiments_root, exp.experiment_folder)
-    os.makedirs(results_dir, exist_ok=True)
-    with open(os.path.join(results_dir, "config.json"), "w") as f:
-        json.dump({"experiment": dataclasses.asdict(exp), "model": dataclasses.asdict(mdl)}, f, indent=2)
+    if main:
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, "config.json"), "w") as f:
+            json.dump({"experiment": dataclasses.asdict(exp), "model": dataclasses.asdict(mdl)}, f, indent=2)
 
     runs = exp.tpu.num_runs if num_runs is None else num_runs
     all_results = []
     for i in range(runs):
         log_fn(f"NEW RUN !!! NUMBER OF RUN ::: {i}")
-        trainer = Trainer(
-            exp, mdl, train_store, val_store, test_store, seed=exp.tpu.seed + i, device=device
-        )
+        trainer = Trainer(exp, mdl, train_store, val_store, test_store, seed=exp.tpu.seed + i, mesh=mesh)
         t0 = time.perf_counter()
         train_log = run_single_training(trainer, results_dir, run_idx=i, log_fn=log_fn, resume=resume)
         log_fn("Starting to test")
@@ -148,6 +166,11 @@ def run_experiment(
         msg["train_episodes_per_sec"] = train_log["train_episodes_per_sec"]
         log_fn(msg)
         all_results.append(msg)
-        with open(os.path.join(results_dir, f"result_run{i}.json"), "w") as f:
-            json.dump(msg, f, indent=2)
+        if main:
+            with open(os.path.join(results_dir, f"result_run{i}.json"), "w") as f:
+                json.dump(msg, f, indent=2)
     return all_results
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of a rank other than 0."""

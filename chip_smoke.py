@@ -165,7 +165,21 @@ Imports nothing of JAX or of the JAX package. In order it:
    ``ContrastivePrototypicalNetworks.contrastive_forward`` with a fixed
    permutation; (d) ``Trainer.profile_epoch`` over 8 steps writes a Chrome
    trace that names K1's and K2's kernels;
-25. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+25. data parallelism, after the E=8 accumulation phase: (a) one rank in an
+   NCCL process group: 4 steps of the flagship at E=8 in chunks of 4 with
+   remat in float32 (TF32 off) against the plain Trainer from the same seed
+   (epoch loss, every parameter, the running statistics), then in bf16 with
+   launches per step K1 4, K2 2, K3 0, ms per step beside the plain E=8/4
+   phase, NCCL's kernels and device time per step (one rank's all-reduce may
+   launch none), and ``test()`` over 64
+   tasks equal to the plain Trainer's; (b) two ranks on the one card over
+   gloo on CUDA tensors, ``parallel/dryrun.py::dryrun_multichip`` at the
+   flagship's widths in float32, E=8 (4 per rank): one step's loss,
+   gradients and running statistics against one process's E=8 step on the
+   same episodes and draws, 4 steps, a gathered 32-task eval against one
+   process replaying each rank's draws, launches per rank and step K1 2,
+   K2 1, K3 0;
+26. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -281,9 +295,11 @@ def profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels, ops = {}, {}
+    kernels, ops, collectives = {}, {}, {}
     for evt in prof.key_averages():
         us = float(getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0))
+        if "all_reduce" in evt.key or "allreduce" in evt.key:  # the host's collective calls
+            collectives[evt.key] = evt.count
         if us <= 0:
             continue
         # device-side entries are kernels and copies; host-side entries are
@@ -308,6 +324,9 @@ def profile(fn) -> dict:
         k2_us_per_launch=per_launch_us("episode_scores_kernel"),
         k3_us_per_launch=per_launch_us("mel_log_kernel"),
         fft_us=sum(t for k, (t, _) in kernels.items() if "fft" in k.lower()),
+        nccl_us=sum(t for k, (t, _) in kernels.items() if "nccl" in k.lower()),
+        nccl_kernels=sum(n for k, (_, n) in kernels.items() if "nccl" in k.lower()),
+        all_reduce_calls=collectives,
         top_kernels_us_calls=[[k[:80], t, n] for k, (t, n) in top],
         top_ops_device_us_calls=[[k[:80], t, n] for k, (t, n) in top_ops],
     )
@@ -1048,6 +1067,112 @@ def train_card_vs_cpu_phase(dev, store, input_type="spec", waveaug=None, grad_re
                                 small_param_over_lr=2.0),
                 worst=worst, card_step_s=card_s, cpu_step_s=cpu_s,
                 float32_grad_rel_vs_float64_largest_on_cpu=dict(top))
+
+
+DP_PARAM_LR = 8.0  # 4 Adam steps, each ~lr * sign(g): a flipped sign moves a parameter 2 lr a step
+
+
+def dp_world1_phase(dev, store, accum):
+    """(a) Data parallelism over NCCL with one rank on the card: a process
+    group of one (``file://`` rendezvous), the flagship CPL model at E=8 in
+    chunks of 4 with remat, 4 steps of ``train_epoch``. Float32 (TF32 off)
+    against the plain Trainer (no process group) from the same seed: epoch
+    loss within TRAIN_LOSS_RTOL, every parameter within DP_PARAM_LR x lr,
+    the running statistics within 1e-3 of their largest. bf16: launches per
+    step K1 4, K2 2, K3 0, ms per step beside the plain E=8/4 phase of this
+    run, and NCCL's kernels and device time per step under the profiler
+    (reported: NCCL may carry out one rank's all-reduce without a kernel).
+    Then ``test()`` over 64 tasks at E=16 equals the plain Trainer's."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.parallel.mesh import EpisodeMesh, make_mesh, maybe_initialize_distributed
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    alone = EpisodeMesh(0, 1, dev)  # the plain Trainer: no process group, no collective
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    kernels = kernel_counters()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        maybe_initialize_distributed(f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0, "nccl")
+        try:
+            mesh = make_mesh(1, dev)
+            out = dict(backend=dist.get_backend(), world=mesh.world)
+            exp32 = train_exp(tasks=32, episode_batch=8, episode_microbatch=4, compute_dtype="float32")
+            runs = {}
+            for name, m in (("dp", mesh), ("plain", alone)):
+                trainer = Trainer(exp32, ModelConfig(), store, device=dev, seed=0, mesh=m)
+                runs[name] = (trainer, trainer.train_epoch())
+            (dp, m_dp), (plain, m_plain) = runs["dp"], runs["plain"]
+            loss_rel = abs(m_dp["loss"] - m_plain["loss"]) / abs(m_plain["loss"])
+            params = dict(plain.model.named_parameters())
+            param_lr = max((p.detach() - params[n].detach()).abs().max().item()
+                           for n, p in dp.model.named_parameters()) / exp32.lr
+            buffers = dict(plain.model.named_buffers())
+            stats_rel = max((b - buffers[n]).abs().max().item() / max(1.0, buffers[n].abs().max().item())
+                            for n, b in dp.model.named_buffers() if "running" in n)
+            bit_equal = all(torch.equal(v, plain.model.state_dict()[k]) for k, v in dp.model.state_dict().items())
+            if not (loss_rel <= TRAIN_LOSS_RTOL and param_lr <= DP_PARAM_LR and stats_rel <= 1e-3):
+                raise AssertionError(f"one-rank NCCL float32 epoch vs the plain Trainer: loss {loss_rel:.2e}, "
+                                     f"parameters {param_lr:.2e} x lr, statistics {stats_rel:.2e}")
+            out["float32"] = dict(loss_dp=m_dp["loss"], loss_plain=m_plain["loss"], loss_rel=loss_rel,
+                                  param_max_over_lr=param_lr, stats_rel=stats_rel, bit_equal=bit_equal,
+                                  bounds=dict(loss_rel=TRAIN_LOSS_RTOL, param_over_lr=DP_PARAM_LR, stats_rel=1e-3))
+            del runs, dp, plain
+
+            trainer = Trainer(train_exp(tasks=32, episode_batch=8, episode_microbatch=4), ModelConfig(), store,
+                              device=dev, seed=0, mesh=mesh)
+            for k in kernels:
+                k.launches = 0
+            first = trainer.train_epoch()
+            launches = [k.launches / trainer.steps_per_epoch for k in kernels]
+            if launches != [4, 2, 0]:
+                raise AssertionError(f"one-rank NCCL bf16 step launched K1, K2, K3 {launches} times; "
+                                     "expected [4, 2, 0]")
+            second = trainer.train_epoch()
+            prof = profile(lambda: [trainer.train_step(sample_episode(trainer.gen, store, N_WAY, K_SHOT, K_QUERY, 8))
+                                    for _ in range(2)])
+            if not (np.isfinite(first["loss"]) and np.isfinite(second["loss"])):
+                raise AssertionError(f"one-rank NCCL bf16 epochs {first}, {second}")
+            med = float(np.median(trainer.last_step_ms))
+            out["bf16"] = dict(launches_per_step=launches, step_ms=trainer.last_step_ms, step_ms_median=med,
+                               train_episodes_per_s_median=8e3 / med, plain_step_ms_median=accum["step_ms_median"],
+                               nccl_kernels_per_step=prof["nccl_kernels"] / 2, nccl_us_per_step=prof["nccl_us"] / 2,
+                               all_reduce_calls=prof["all_reduce_calls"],
+                               busy_share=prof["device_busy_share"], epochs=[first, second])
+            del trainer
+
+            tests = {}
+            for name, m in (("dp", mesh), ("plain", alone)):
+                trainer = Trainer(flagship_exp(), ModelConfig(), store, test_store=store, device=dev, seed=0, mesh=m)
+                tests[name] = trainer.test()
+            if tests["dp"]["mean_accuracy"] != tests["plain"]["mean_accuracy"]:
+                raise AssertionError(f"one-rank NCCL test() {tests['dp']} vs the plain Trainer's {tests['plain']}")
+            out["test"] = tests
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def dp_two_ranks_phase():
+    """(b) Two ranks on the one card over gloo on CUDA tensors (NCCL refuses
+    two ranks on one device): ``parallel/dryrun.py::dryrun_multichip`` at
+    the flagship's widths in float32, E=8 (4 per rank). Its checks hold one
+    step's loss, gradients and running statistics against one process's
+    E=8 step on the same episodes and draws (the gradients within the dry
+    run's flagship bound: max-pool argmax flips, see
+    ``parallel/dryrun.py::GRAD_REL``), 4 steps' mean loss, and a 32-task
+    eval gathered against one process replaying each rank's episodes and
+    draws. Here besides: launches per rank per step K1 2, K2 1, K3 0."""
+    from audio_few_shot_learning_tpu_torch.parallel.dryrun import STEPS, dryrun_multichip
+
+    out = dryrun_multichip(2, "gloo", "cuda", width="flagship", per_rank=4, eval_tasks=32)
+    if out["launches_per_step"] != [[SPEC_LAUNCHES] * STEPS] * 2:
+        raise AssertionError(f"two-rank steps launched K1, K2, K3 {out['launches_per_step']} per rank and step; "
+                             f"expected {SPEC_LAUNCHES}")
+    return out
 
 
 def train_cli_phase():
@@ -2272,6 +2397,14 @@ def main() -> int:
     if not accum["remat"]:
         raise AssertionError("episode_microbatch 4 should turn remat on")
     t0 = time.perf_counter()
+    dp1 = dp_world1_phase(dev, store, accum)
+    dp1["seconds"] = time.perf_counter() - t0
+    print(f"(a) data-parallel phase, one rank over NCCL ({card}): " + json.dumps(dp1), flush=True)
+    t0 = time.perf_counter()
+    dp2 = dp_two_ranks_phase()
+    dp2["seconds"] = time.perf_counter() - t0
+    print(f"(b) data-parallel phase, two ranks on one card over gloo ({card}): " + json.dumps(dp2), flush=True)
+    t0 = time.perf_counter()
     host_store = make_store(dev, host_dtype="bfloat16")
     print(f"host spec store: {host_store.nbytes() / 1e6:.1f} MB bf16 in host RAM, packed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2473,6 +2606,8 @@ def main() -> int:
             **{f"launches_per_{name}": row.get("launches_per_step", row.get("launches_per_batch"))[i]
                for name, row in hostfed.items()},
             launches_per_sweep_train_step=entry["sweep"]["launches_per_step"][i],
+            launches_per_dp_one_rank_step=dp1["bf16"]["launches_per_step"][i],
+            launches_per_dp_rank_step_two_ranks=dp2["launches_per_step"][0][0][i],
             launches_per_classifier_encode_call=entry["classifier"]["launches_per_encode_call"][0][i],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)

@@ -558,3 +558,51 @@ def test_jax_model_file_tests_on_card(cuda, tmp_path):
     for key, value in source.state_dict().items():
         if not key.endswith("num_batches_tracked"):
             assert torch.equal(trainer.model.state_dict()[key].cpu(), value), key
+
+
+def test_one_rank_nccl_step_matches_the_plain_trainer(cuda, tmp_path):
+    """A process group of one rank over NCCL: 2 steps of the dry run's small
+    flagship structure at E=4 in chunks of 2 (float32), launches per step K1
+    4, K2 2, K3 0, against the plain Trainer (no group) from the same seed:
+    epoch loss 1e-4 relative, parameters within 2 x lr a step (an Adam step
+    whose sign flips on nondeterministic reductions moves 2 lr)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from audio_few_shot_learning_tpu_torch.parallel import dryrun
+    from audio_few_shot_learning_tpu_torch.parallel.mesh import EpisodeMesh, make_mesh, maybe_initialize_distributed
+
+    exp, mdl, _ = dryrun.dryrun_configs("small", 4, tasks=8, device="cuda")
+    exp = dataclasses.replace(exp, tpu=dataclasses.replace(exp.tpu, episode_microbatch=2))
+    store = dryrun.dryrun_store("small", cuda)
+    maybe_initialize_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0, "nccl")
+    try:
+        runs = {}
+        for name, mesh in (("nccl", make_mesh(1, cuda)), ("plain", EpisodeMesh(0, 1, cuda))):
+            trainer = Trainer(exp, mdl, store, seed=0, mesh=mesh)
+            specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = mel.mel_log_cuda.launches = 0
+            metrics = trainer.train_epoch()
+            launches = (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches,
+                        mel.mel_log_cuda.launches)
+            assert launches == (8, 4, 0), launches
+            runs[name] = (metrics, trainer)
+    finally:
+        dist.destroy_process_group()
+    (m_nccl, t_nccl), (m_plain, t_plain) = runs["nccl"], runs["plain"]
+    assert t_nccl.mesh.group is not None and t_plain.mesh.group is None
+    np.testing.assert_allclose(m_nccl["loss"], m_plain["loss"], rtol=1e-4)
+    plain = dict(t_plain.model.named_parameters())
+    for name, p in t_nccl.model.named_parameters():
+        torch.testing.assert_close(p, plain[name], atol=2 * 2 * exp.lr, rtol=0, msg=name)
+
+
+def test_two_ranks_share_one_card_over_gloo(cuda):
+    """Two ranks on one card in a gloo group on CUDA tensors: the dry run's
+    checks (one step, 4 steps and a gathered eval against one process)
+    pass, and each rank launches K1 2, K2 1, K3 0 a step."""
+    from audio_few_shot_learning_tpu_torch.parallel import dryrun
+
+    out = dryrun.dryrun_multichip(2, "gloo", "cuda", width="small", per_rank=2, eval_tasks=8, timeout_s=300)
+    assert out["launches_per_step"] == [[[2, 1, 0]] * dryrun.STEPS] * 2
+    assert out["eval_batch_per_rank"] == [2, 2]

@@ -508,8 +508,10 @@ def test_wav_train_step_runs_with_one_view():
 def test_later_slices_raise():
     """What the port refused until it had them now builds a Trainer:
     ``bn_per_view_group``, WaveAugment on wav input (1 + aug_num views),
-    the StandardCNN encoder and the relation head. It still refuses a mesh
-    of more than one device and a microbatch that does not divide the batch."""
+    the StandardCNN encoder and the relation head. It refuses a mesh of
+    more than one device outside a process group (naming torchrun: the
+    data-parallel path is tests/test_torch_port_parallel.py) and a
+    microbatch that does not divide the batch."""
     grouped = _train_trainer(tpu={"bn_per_view_group": True})
     assert grouped.exp.tpu.bn_per_view_group and grouped.v_support == 4
     wav = _train_trainer(geometry="wav", store=_wav_store(6), input_type="wav",
@@ -517,7 +519,7 @@ def test_later_slices_raise():
     assert wav.waveaug and wav.v_support == wav._v_query(True) == 3 and wav._v_query(False) == 1
     assert _train_trainer(encoder_name="CNN").model.backbone.encoder.out_dim == 64
     assert hasattr(_train_trainer(relation_head=True).model, "relation_head")
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(RuntimeError, match="mesh_shape=2 .*torchrun"):
         _train_trainer(tpu={"mesh_shape": 2})
     assert _train_trainer(tpu={"mesh_shape": 1}).device.type == "cpu"
     with pytest.raises(ValueError, match="must divide"):
