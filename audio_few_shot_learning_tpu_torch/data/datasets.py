@@ -13,7 +13,8 @@ says so or the split would not fit on the card beside the training program
 engine then streams each episode batch to the card. Spec files are packed by
 the native C++ packer (``data/native_pack.py``), or through numpy with the
 same arithmetic where the files are irregular. ``make_synthetic_dataset``
-writes a learnable spec dataset in the same layout.
+writes a learnable spec dataset in the same layout, and
+``make_synthetic_wav_dataset`` a raw-waveform one.
 """
 
 from __future__ import annotations
@@ -231,7 +232,61 @@ def make_synthetic_dataset(
     flat = np.concatenate([a.ravel() for a in all_vals])
     glob_norm = np.array([[[flat.mean()]], [[flat.std()]]], dtype=np.float32)
     np.save(root / "norm_stats" / "glob_norm.npy", glob_norm)
+    _save_splits(root, class_names, split_fractions)
+    return root
 
+
+def make_synthetic_wav_dataset(
+    root: Union[str, Path],
+    n_classes: int = 12,
+    items_per_class: int = 12,
+    sr: int = 16000,
+    seconds: float = 2.0,
+    variable_length: bool = False,
+    split_fractions: Tuple[int, int, int] = (8, 2, 2),
+    seed: int = 0,
+) -> Path:
+    """Write a raw-waveform dataset (``waveforms_npy/`` layout): per class a
+    tone of its own in noise; ``norm_stats/glob_norm.npy`` holds the online
+    log-mel's mean and std over the first second of two items a class, as
+    the wav pipeline expects. The waveforms are the JAX package's for the
+    same arguments (same generator calls in the same order); the log-mel
+    runs on the CPU."""
+    from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    wav_dir = root / "waveforms_npy"
+    wav_dir.mkdir(parents=True, exist_ok=True)
+    (root / "norm_stats").mkdir(exist_ok=True)
+    if sum(split_fractions) != n_classes:
+        raise ValueError(f"split fractions {split_fractions} must sum to n_classes={n_classes}")
+    class_names = [f"class_{i:03d}" for i in range(n_classes)]
+    mel = MelSpec("online")
+    mel_vals = []
+    for ci, name in enumerate(class_names):
+        cdir = wav_dir / name
+        cdir.mkdir(exist_ok=True)
+        freq = 200.0 + 300.0 * ci
+        for ii in range(items_per_class):
+            dur = seconds * (0.5 + rng.random() * 1.5) if variable_length else seconds
+            n = int(sr * dur)
+            t = np.arange(n) / sr
+            x = np.sin(2 * np.pi * freq * t) + 0.3 * rng.standard_normal(n)
+            x = (x / max(np.abs(x).max(), 1e-6)).astype(np.float32)
+            np.save(cdir / f"item_{ii:04d}.npy", x)
+            if ii < 2:  # a subsample for the statistics
+                mel_vals.append(mel(torch.from_numpy(x[:sr])).numpy().ravel())
+
+    flat = np.concatenate(mel_vals)
+    glob_norm = np.array([[[flat.mean()]], [[flat.std()]]], dtype=np.float32)
+    np.save(root / "norm_stats" / "glob_norm.npy", glob_norm)
+    _save_splits(root, class_names, split_fractions)
+    return root
+
+
+def _save_splits(root: Path, class_names: List[str], split_fractions: Tuple[int, int, int]) -> None:
+    """``splits.npy``: the class names of train, valid and test, in order."""
     tr, va, _ = split_fractions
     splits = np.array(
         [
@@ -242,4 +297,3 @@ def make_synthetic_dataset(
         dtype=object,
     )
     np.save(root / "splits.npy", splits, allow_pickle=True)
-    return root

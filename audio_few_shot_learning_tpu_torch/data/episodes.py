@@ -150,3 +150,16 @@ def sample_episode(
         query_mask=real,
     )
 
+
+def sample_episode_batch(
+    gen: torch.Generator,
+    store: Union[PackedStore, PackedWavStore],
+    n_way: int,
+    k_support: int,
+    k_query: int,
+    is_test: bool = False,
+    batch: int = 1,
+) -> EpisodeBatch:
+    """``sample_episode`` under the JAX package's name and argument order
+    (``data/episodes.py:224``), a ``torch.Generator`` in place of its key."""
+    return sample_episode(gen, store, n_way, k_support, k_query, batch, is_test)

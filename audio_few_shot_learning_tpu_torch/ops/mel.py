@@ -394,3 +394,9 @@ class MelSpec:
         pspec = power_spectrogram(wav, self.n_fft, self.hop_length, self.power, self.pad_mode)
         fb, bands = self._filterbank(pspec.device)
         return mel_log(pspec, fb, self.log_mult, self.eps, bands)
+
+
+def log_mel_spectrogram(wav: torch.Tensor, flavor: str = "online", **kw) -> torch.Tensor:
+    """``[..., L] -> [..., n_mels, frames]``: ``MelSpec(flavor, **kw)(wav)``
+    (JAX ``log_mel_spectrogram``, ops/mel.py:251)."""
+    return MelSpec(flavor=flavor, **kw)(wav)

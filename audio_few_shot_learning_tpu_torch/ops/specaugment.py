@@ -22,6 +22,7 @@ Layouts follow the JAX package: specs ``[B, F, T]`` -> views
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -118,11 +119,17 @@ def draw_views_params(
     e = (n_episodes,)
     tlo, thi = mask_bounds_time(gen, e, params.num_mask, params.mask_param, params.p, t_len, device)
     flo, fhi = mask_bounds_freq(gen, e, params.num_mask, params.mask_param, f_len, device)
-    w = params.W
-    warp_p = torch.randint(w, t_len - w, (n_episodes, n_items), generator=gen, device=device)
-    warp_d = torch.randint(-w, w, (n_episodes, n_items), generator=gen, device=device)
-    ys = hermite_warp_positions(warp_p, warp_d, t_len)
+    ys = draw_warp_positions(gen, (n_episodes, n_items), t_len, params.W, device)
     return ys, interval_mask(tlo, thi, t_len), interval_mask(flo, fhi, f_len)
+
+
+def draw_warp_positions(gen: torch.Generator, shape: Tuple[int, ...], t_len: int, w: int, device) -> torch.Tensor:
+    """Per-item time-warp source positions ``shape + [T]``: the control
+    point ``warp_p ~ U[w, T-w)`` and shift ``warp_d ~ U[-w, w)`` of each
+    item, through the Hermite curve."""
+    warp_p = torch.randint(w, t_len - w, shape, generator=gen, device=device)
+    warp_d = torch.randint(-w, w, shape, generator=gen, device=device)
+    return hermite_warp_positions(warp_p, warp_d, t_len)
 
 
 def warp_gather(spec: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
@@ -141,6 +148,14 @@ def warp_gather(spec: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     g0 = torch.gather(spec, -1, i0).to(torch.float32)
     g1 = torch.gather(spec, -1, i1).to(torch.float32)
     return (w0 * g0 + w1 * g1).to(spec.dtype)
+
+
+def time_warp(spec: torch.Tensor, gen: torch.Generator, w: int) -> torch.Tensor:
+    """Per-item Hermite time warp ``[..., F, T] -> [..., F, T]`` (JAX
+    ``time_warp``, ops/specaugment.py:124), its control points drawn from
+    ``gen``, which lives on ``spec``'s device: the warp view of K1's 4."""
+    ys = draw_warp_positions(gen, tuple(spec.shape[:-2]), spec.shape[-1], w, spec.device)
+    return warp_gather(spec, ys)
 
 
 def views_reference(spec, ys, tmask, fmask, mask_value: float) -> torch.Tensor:
@@ -218,3 +233,21 @@ def spec_augment_views(
     fn = views_reference if spec.device.type == "cpu" else views_cuda
     out = fn(spec, ys, tmask.bool(), fmask.bool(), float(params.mask_value))
     return out[0] if single else out
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecAugment:
+    """Configured SpecAugment callable (JAX ``SpecAugment``,
+    ops/specaugment.py:244): ``spec_augment_views`` with these parameters,
+    drawing from a ``torch.Generator`` where the JAX one takes a key."""
+
+    params: SpecAugParams
+
+    def __call__(
+        self, spec: torch.Tensor, gen: Optional[torch.Generator], draws: Optional[Draws] = None
+    ) -> torch.Tensor:
+        return spec_augment_views(spec, gen, self.params, draws)
+
+    @property
+    def num_views(self) -> int:
+        return NUM_VIEWS

@@ -156,8 +156,6 @@ def _grads(model) -> Dict[str, np.ndarray]:
 
 def _rank(width: str, per_rank: int, device: str, eval_tasks: int) -> dict:
     """One rank's part: the fed steps, the eval pass, the sampled epoch."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(device=rank_device(device, torch.distributed.get_rank()))
     e = mesh.world * per_rank
     exp, mdl, _ = dryrun_configs(width, e, tasks=STEPS * e, eval_batch=e, device=device)
@@ -225,8 +223,6 @@ def dryrun_multichip(
                       timeout_s=timeout_s, threads=threads)
     sharded_s = time.perf_counter() - t0
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = rank_device(device, 0)
     exp, mdl, _ = dryrun_configs(width, e, tasks=STEPS * e, eval_batch=e, device=device)
     store = dryrun_store(width, dev)

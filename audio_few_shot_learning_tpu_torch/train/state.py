@@ -26,3 +26,11 @@ def scheduled_lr(
     """Learning rate of optimizer update ``step`` (0-based)."""
     passed = sum(1 for m in set(int(m) for m in milestones) if step >= m * steps_per_epoch)
     return lr * gamma**passed
+
+
+def param_count(module: torch.nn.Module) -> int:
+    """Number of parameter entries (JAX ``param_count``, train/state.py:74).
+    A model's count includes the reference's two projection LayerNorms
+    (``projection_head.ln1``/``ln2``), which its forward never applies and
+    the JAX package's parameter tree does not hold."""
+    return sum(p.numel() for p in module.parameters())

@@ -179,11 +179,28 @@ Imports nothing of JAX or of the JAX package. In order it:
    same episodes and draws, 4 steps, a gathered 32-task eval against one
    process replaying each rank's draws, launches per rank and step K1 2,
    K2 1, K3 0;
-26. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+26. bf16, the shipped configs' precision, after the float32 card-vs-CPU
+   phases (spec, then wav): the flagship at 128x157 in bf16 and in float32,
+   on the card and in the port on the CPU, from the same weights, episodes
+   and draws: one spec eval batch at E=2 (K1 2, K2 1), one train step at
+   E=1 (K1 2, K2 1) and one wav eval batch at E=2 (K3 1, K2 1), each
+   kernel's input dtype recorded. Each quantity prints the card-bf16 vs
+   CPU-bf16 deviation beside card-bf16 vs card-float32 and CPU-bf16 vs
+   CPU-float32; the card's is held within ``BF16_C`` x the CPU's (scores,
+   running statistics, gradient shares over the leaves) and under caps
+   relative to the quantity's scale (``BF16_*``);
+27. ``--resume`` on the card, after the ``cli.train_test`` phase: the
+   flagship at E=1 on a split of a synthetic dataset, 2 epochs of 8 tasks
+   straight through against 1 epoch, a resume checkpoint and 1 resumed
+   epoch from the same seed: step, generator and epoch equal, parameters
+   within 2 lr a step, validation accuracy within ``RESUME_VAL_ATOL``;
+28. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
-preprocessing; each host-fed phase runs after its device-store phase. Any failure raises and exits non-zero. Exits non-zero without a result when
+preprocessing; each host-fed phase runs after its device-store phase. The
+card is resolved as every entry point resolves it (``device.py``: TF32 off
+for cuBLAS and cuDNN); the script sets no precision flag of its own. Any failure raises and exits non-zero. Exits non-zero without a result when
 no CUDA device is present.
 """
 
@@ -1067,6 +1084,318 @@ def train_card_vs_cpu_phase(dev, store, input_type="spec", waveaug=None, grad_re
                                 small_param_over_lr=2.0),
                 worst=worst, card_step_s=card_s, cpu_step_s=cpu_s,
                 float32_grad_rel_vs_float64_largest_on_cpu=dict(top))
+
+
+# ---------------------------------------------------------------------------
+# bf16, the shipped configs' precision: card against the port on the CPU
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_port_bf16.py holds the port's bf16 error within C = 1.5 x
+# the JAX package's on the CPU. Here the card's bf16 deviation from its own
+# float32 run is held within BF16_C x the CPU's bf16 deviation from the
+# CPU's float32 run (the float32 runs stand in for the truth: their own
+# error is ~1e-4 of the bf16 one), on the largest and the RMS element.
+# BF16_C is that C times 2: the card rounds each conv's output to bf16 and
+# then adds the bias in a second bf16 pass (cuDNN's conv, then an add_),
+# as the JAX package does, where oneDNN on the CPU adds it inside the conv;
+# on the CPU tests that second rounding left the JAX package up to 1.8x the
+# port's error (the flagship step's running statistics, RMS)
+BF16_C = 3.0
+# caps on the card's bf16 deviation from its float32 run, relative to the
+# float32 result's scale (largest |x|): ~4x the CPU tests' worst figures
+# (scores 2.7%, loss 4.3%, a gradient leaf's RMS share over leaves 0.26)
+BF16_SCORE_REL, BF16_LOSS_REL, BF16_GRAD_RMS_SHARE = 0.1, 0.15, 1.0
+BF16_EVAL_BATCH = 2
+
+
+def _dev_err(x, ref):
+    """(largest, RMS) of ``x - ref`` on the CPU, in float64."""
+    d = x.detach().cpu().double() - ref.detach().cpu().double()
+    return d.abs().max().item(), d.square().mean().sqrt().item()
+
+
+def bf16_hold(name, card16, card32, cpu16, cpu32, scale_rel=None, against_cpu=True):
+    """The card's bf16 deviation from its float32 run within BF16_C x the
+    CPU's (largest and RMS; ``against_cpu``) and, with ``scale_rel``, within
+    that share of the float32 result's largest |x|. Returns the deviations."""
+    card, cpu, cross = _dev_err(card16, card32), _dev_err(cpu16, cpu32), _dev_err(card16, cpu16)
+    scale = card32.detach().abs().max().item()
+    row = dict(card_bf16_vs_card_f32=card, cpu_bf16_vs_cpu_f32=cpu, card_bf16_vs_cpu_bf16=cross,
+               card_f32_vs_cpu_f32=_dev_err(card32, cpu32), scale=scale)
+    for k, what in enumerate(("largest", "RMS")):
+        if against_cpu and not card[k] <= BF16_C * cpu[k]:
+            raise AssertionError(f"bf16 {name}: the card's {what} deviation {card[k]} > {BF16_C} x the CPU's "
+                                 f"{cpu[k]}: {row}")
+    if scale_rel is not None and not card[0] <= scale_rel * scale:
+        raise AssertionError(f"bf16 {name}: the card's deviation {card[0]} above {scale_rel} of the scale: {row}")
+    return row
+
+
+class _DtypeSpy:
+    """Stands in for a kernel's wrapper in its module: records the dtype of
+    the first argument of every call, and keeps the launch count on the
+    wrapper (which counts through its module's name, now this spy)."""
+
+    def __init__(self, fn, name: str, out: dict):
+        self.fn, self.name, self.out = fn, name, out
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, *args, **kwargs):
+        self.out.setdefault(self.name, set()).add(str(args[0].dtype).replace("torch.", ""))
+        return self.fn(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def kernel_dtypes(out: dict):
+    """Record the dtypes each kernel's wrapper is called with (by kernel
+    name, a set) while the block runs."""
+    from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
+
+    wrapped = [(specaugment, "views_cuda", "K1"), (protohead, "episode_scores_cuda", "K2"),
+               (mel, "mel_log_cuda", "K3")]
+    saved = [(module, attr, getattr(module, attr)) for module, attr, _ in wrapped]
+    for (module, attr, name), (_, _, fn) in zip(wrapped, saved):
+        setattr(module, attr, _DtypeSpy(fn, name, out))
+    try:
+        yield out
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def check_float32_inputs(dtypes: dict, what: str) -> None:
+    """At bf16 each kernel is still fed float32, as in the JAX package: K1
+    the store's specs, K2 the features cast up after the encoder (JAX
+    protonets.py:141), K3 the power spectrum."""
+    if any(v != {"float32"} for v in dtypes.values()):
+        raise AssertionError(f"{what}: kernel input dtypes {dtypes}, expected float32 throughout")
+
+
+def _four_trainers(dev, store, exp_of):
+    """Card and CPU trainers in bf16 and float32 (``exp_of(dtype)``), every
+    one with the card's bf16 model's weights and every dropout at p = 0."""
+    from audio_few_shot_learning_tpu_torch.config import ModelConfig
+    from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+
+    out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        for dtype in ("bfloat16", "float32"):
+            out[f"{where}{16 if dtype == 'bfloat16' else 32}"] = Trainer(
+                exp_of(dtype), ModelConfig(), store, device=device, seed=3)  # a CPU copy takes shapes only
+    init = {k: v.detach().cpu().clone() for k, v in out["card16"].model.state_dict().items()}
+    for t in out.values():
+        t.model.load_state_dict(init)
+        for m in t.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return out
+
+
+def bf16_eval_phase(dev, store, input_type):
+    """One bf16 eval batch of the flagship at E=2 (spec: K1 then K2; wav: K3
+    then K2), on the card and on the CPU, beside float32 runs of the same
+    batch: same weights, episodes and SpecAugment draws."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
+
+    e, t0 = BF16_EVAL_BATCH, time.perf_counter()
+    tr = _four_trainers(dev, store, lambda dtype: flagship_exp(input_type, compute_dtype=dtype,
+                                                               eval_episode_batch=e))
+    ep = sample_episode(torch.Generator(device=dev).manual_seed(7), store, N_WAY, K_SHOT, K_QUERY, e)
+    ep_cpu = episode_to_cpu(ep)
+    draws_cpu = draws_card = None
+    if input_type == "spec":
+        g = torch.Generator().manual_seed(8)
+        draws_cpu = tuple(draw_views_params(g, tr["cpu16"].exp.specaug_params, e, n, N_MELS, N_FRAMES, "cpu")
+                          for n in (N_WAY * K_SHOT, N_WAY * K_QUERY))
+        draws_card = tuple(tuple(x.to(dev) for x in d) for d in draws_cpu)
+    kernels = kernel_counters()
+    scores, dtypes = {}, {}
+    with torch.inference_mode():
+        for name, t in tr.items():
+            on_card = name.startswith("card")
+            if name == "card16":
+                for k in kernels:
+                    k.launches = 0
+            with kernel_dtypes(dtypes) if name == "card16" else contextlib.nullcontext():
+                s = t._episode_scores(ep if on_card else ep_cpu, N_WAY, True, t.gen,
+                                      draws_card if on_card else draws_cpu, store)
+            if name == "card16":
+                torch.cuda.synchronize()
+                launches = [k.launches for k in kernels]
+            scores[name] = s.float().cpu()
+    if not all(torch.isfinite(s).all() for s in scores.values()):
+        raise AssertionError(f"bf16 {input_type} eval: scores not finite")
+    row = bf16_hold(f"{input_type} eval scores", scores["card16"], scores["card32"], scores["cpu16"],
+                    scores["cpu32"], BF16_SCORE_REL)
+    want = WAV_LAUNCHES if input_type == "wav" else SPEC_LAUNCHES
+    if launches != want:
+        raise AssertionError(f"bf16 {input_type} eval batch launched K1-K3 {launches}, expected {want}")
+    check_float32_inputs(dtypes, f"bf16 {input_type} eval")
+    agree = {k: (scores[k].argmax(-1) == scores[k.replace("16", "32")].argmax(-1)).float().mean().item()
+             for k in ("card16", "cpu16")}
+    # a row whose argmax the card's bf16 run loses and the CPU's keeps is a
+    # near tie: its float32 top-two margin under 2 x the CPU's deviation
+    top2 = scores["card32"].topk(2, dim=-1).values
+    lost = (scores["card16"].argmax(-1) != scores["card32"].argmax(-1)) & (
+        scores["cpu16"].argmax(-1) == scores["cpu32"].argmax(-1))
+    margins = (top2[..., 0] - top2[..., 1])[lost]
+    if not (margins < 2 * row["cpu_bf16_vs_cpu_f32"][0]).all():
+        raise AssertionError(f"bf16 {input_type} eval: the card loses rows of float32 margin {margins.tolist()}")
+    row.update(launches=launches, kernel_input_dtypes={k: sorted(v) for k, v in dtypes.items()},
+               argmax_agree_with_own_f32=agree, rows_lost_by_card_margins=margins.tolist(), episodes=e,
+               seconds=time.perf_counter() - t0)
+    return row
+
+
+def bf16_train_phase(dev, store):
+    """One bf16 flagship train step at E=1 (K1 2, K2 1) on the card and on
+    the CPU, beside float32 steps: same weights, episode, views, view
+    permutations and CPL draws, every dropout at p = 0. The loss, every
+    gradient (each leaf's deviation as a share of its largest float32 |g|,
+    then the largest and the RMS over the leaves) and the running
+    statistics."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.data.episodes import sample_episode
+    from audio_few_shot_learning_tpu_torch.losses import draw_cpl_gumbel
+    from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params
+    from audio_few_shot_learning_tpu_torch.train.engine import TrainDraws
+
+    t0 = time.perf_counter()
+    tr = _four_trainers(dev, store, lambda dtype: train_exp(compute_dtype=dtype, episode_batch=1))
+    ep = sample_episode(torch.Generator(device=dev).manual_seed(9), store, N_WAY, K_SHOT, K_QUERY, 1)
+    g = torch.Generator().manual_seed(10)
+    draws_cpu = TrainDraws(perms=torch.rand((1, 3), generator=g).argsort(dim=-1) + 1,
+                           cpl_gumbel=draw_cpl_gumbel(g, 1, N_WAY * K_QUERY, N_WAY, "cpu"))
+    draws_cpu.support, draws_cpu.query = (
+        draw_views_params(g, tr["cpu16"].exp.specaug_params, 1, k, N_MELS, N_FRAMES, "cpu")
+        for k in (N_WAY * K_SHOT, N_WAY * K_QUERY))
+    draws_card = TrainDraws(perms=draws_cpu.perms.to(dev), cpl_gumbel=draws_cpu.cpl_gumbel.to(dev),
+                            support=tuple(x.to(dev) for x in draws_cpu.support),
+                            query=tuple(x.to(dev) for x in draws_cpu.query))
+    kernels = kernel_counters()
+    loss, grads, stats, dtypes = {}, {}, {}, {}
+    for name, t in tr.items():
+        on_card = name.startswith("card")
+        if name == "card16":
+            for k in kernels:
+                k.launches = 0
+        with kernel_dtypes(dtypes) if name == "card16" else contextlib.nullcontext():
+            m = t.train_step(ep if on_card else episode_to_cpu(ep), draws_card if on_card else draws_cpu)
+        if name == "card16":
+            torch.cuda.synchronize()
+            launches = [k.launches for k in kernels]
+        loss[name] = m[0:1].float().cpu()
+        grads[name] = {n: p.grad.float().cpu() for n, p in t.model.named_parameters() if p.grad is not None}
+        stats[name] = torch.cat([b.float().cpu().ravel() for n, b in t.model.named_buffers()
+                                 if n.endswith(("running_mean", "running_var"))])
+    if launches != SPEC_LAUNCHES:
+        raise AssertionError(f"bf16 train step launched K1-K3 {launches}, expected {SPEC_LAUNCHES}")
+    check_float32_inputs(dtypes, "bf16 train step")
+    if not all(torch.isfinite(x).all() for x in loss.values()):
+        raise AssertionError(f"bf16 train step: loss {loss}")
+    # one scalar: its two deviations are two draws of bf16 noise, whose
+    # ratio says nothing (the CPU tests hold the loss over 8 batches), so
+    # only the cap applies
+    row = dict(loss=bf16_hold("train loss", *(loss[k] for k in ("card16", "card32", "cpu16", "cpu32")),
+                              scale_rel=BF16_LOSS_REL, against_cpu=False),
+               running_stats=bf16_hold("running statistics",
+                                       *(stats[k] for k in ("card16", "card32", "cpu16", "cpu32"))))
+    shares = {"card": [], "cpu": [], "cross": []}
+    for n, ref in grads["card32"].items():
+        if n.startswith("backbone.encoder.conv_encoder.") and n.endswith(".0.bias"):
+            continue  # zero but for rounding ahead of train-mode BatchNorm
+        scale = ref.abs().max().item()
+        if scale == 0.0:
+            continue
+        shares["card"].append((grads["card16"][n] - ref).abs().max().item() / scale)
+        shares["cpu"].append((grads["cpu16"][n] - grads["cpu32"][n]).abs().max().item() / scale)
+        shares["cross"].append((grads["card16"][n] - grads["cpu16"][n]).abs().max().item() / scale)
+    agg = {k: (max(v), float(np.sqrt(np.mean(np.square(v))))) for k, v in shares.items()}
+    for i, what in enumerate(("largest", "RMS")):
+        if not agg["card"][i] <= BF16_C * agg["cpu"][i]:
+            raise AssertionError(f"bf16 train step: the card's {what} gradient share {agg['card'][i]} > "
+                                 f"{BF16_C} x the CPU's {agg['cpu'][i]}")
+    if not agg["card"][1] <= BF16_GRAD_RMS_SHARE:
+        raise AssertionError(f"bf16 train step: gradient RMS share {agg['card'][1]} above {BF16_GRAD_RMS_SHARE}")
+    row.update(grad_share_card_bf16_vs_card_f32=agg["card"], grad_share_cpu_bf16_vs_cpu_f32=agg["cpu"],
+               grad_share_card_bf16_vs_cpu_bf16=agg["cross"], launches=launches,
+               kernel_input_dtypes={k: sorted(v) for k, v in dtypes.items()}, seconds=time.perf_counter() - t0)
+    return row
+
+
+RESUME_TASKS, RESUME_EPOCHS = 8, 2
+# validation accuracy of the resumed run against the straight run's (8 tasks
+# of 25 queries: 0.05 is 10 queries)
+RESUME_VAL_ATOL = 0.05
+
+
+def resume_phase():
+    """``--resume`` on the card: on a split of a synthetic dataset written by
+    ``make_synthetic_dataset`` (15 classes of 128x157, band gain 1), the
+    flagship (bf16, E=1) trains 2 epochs of 8 tasks straight through; then
+    from the same seed 1 epoch, a resume checkpoint, a fresh trainer resumed
+    from it and the second epoch. The resumed run's step, generator state and
+    epoch, the parameters and the validation accuracy against the straight
+    run's (cuDNN's backward is not deterministic, so each parameter is held
+    to 2 lr a step, the most two Adam trajectories can part by)."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.config import ExperimentConfig, ModelConfig
+    from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split, make_synthetic_dataset
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+    from audio_few_shot_learning_tpu_torch.train.experiment import run_single_training
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = make_synthetic_dataset(os.path.join(tmp, "synth"), n_classes=15, items_per_class=10,
+                                      n_mels=N_MELS, n_frames=N_FRAMES, split_fractions=(5, 5, 5), band_gain=1.0)
+
+        def trainer(epochs):
+            d = train_dict(tasks=RESUME_TASKS, episode_batch=1)
+            d.update(num_epochs=epochs, patience=5)
+            exp = ExperimentConfig.from_dict(d)
+            train, val = (load_packed_split(exp, root, s, "cuda") for s in ("train", "valid"))
+            return Trainer(exp, ModelConfig(), train, val_store=val, test_store=val, seed=11)
+
+        logs = []
+        straight = run_single_training(trainer(RESUME_EPOCHS), os.path.join(tmp, "a"), log_fn=logs.append)
+        run_single_training(trainer(RESUME_EPOCHS - 1), os.path.join(tmp, "b"), log_fn=logs.append)
+        resumed = run_single_training(trainer(RESUME_EPOCHS), os.path.join(tmp, "b"), log_fn=logs.append,
+                                      resume=True)
+        a, b = (torch.load(os.path.join(tmp, d, "resume_run0.ckpt"), weights_only=True) for d in ("a", "b"))
+        meta = json.load(open(os.path.join(tmp, "b", "resume_run0.ckpt.meta.json")))
+    if f"Resumed run 0 from epoch {RESUME_EPOCHS - 1}" not in logs:
+        raise AssertionError(f"the resumed run did not resume: {logs}")
+    steps = RESUME_EPOCHS * RESUME_TASKS
+    if not (a["step"] == b["step"] == steps and meta["epoch"] == RESUME_EPOCHS
+            and torch.equal(a["generator"], b["generator"])):
+        raise AssertionError(f"resume: steps {a['step']} / {b['step']}, epoch {meta['epoch']}, generators "
+                             f"equal {torch.equal(a['generator'], b['generator'])}")
+    lr = train_exp().lr
+    param_over_lr = max((b["model"][k].double() - v.double()).abs().max().item() / lr
+                        for k, v in a["model"].items() if v.is_floating_point())
+    if not param_over_lr <= 2 * steps:
+        raise AssertionError(f"resume: parameters {param_over_lr} lr apart, above 2 lr a step ({2 * steps})")
+    h_s, h_r = straight["history"][-1], resumed["history"][-1]
+    if not abs(h_r["val_accuracy"] - h_s["val_accuracy"]) <= RESUME_VAL_ATOL:
+        raise AssertionError(f"resume: validation accuracy {h_r['val_accuracy']} vs {h_s['val_accuracy']}")
+    return dict(steps=steps, param_max_diff_over_lr=param_over_lr, param_bound_over_lr=2 * steps,
+                val_accuracy_straight=h_s["val_accuracy"], val_accuracy_resumed=h_r["val_accuracy"],
+                loss_straight=h_s["loss"], loss_resumed=h_r["loss"], seconds=time.perf_counter() - t0)
 
 
 DP_PARAM_LR = 8.0  # 4 Adam steps, each ~lr * sign(g): a flipped sign moves a parameter 2 lr a step
@@ -2355,9 +2684,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from audio_few_shot_learning_tpu_torch.device import resolve_device
     from audio_few_shot_learning_tpu_torch.ops import cuda_build
 
-    dev = torch.device("cuda:0")
+    dev = resolve_device("cuda:0")  # as every entry point: TF32 off (device.py)
     started = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2373,8 +2703,6 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     kern = kernel_phase(dev)
     print("kernel phase: " + json.dumps(kern), flush=True)
 
@@ -2431,6 +2759,9 @@ def main() -> int:
     train_cmp = train_card_vs_cpu_phase(dev, store)
     train_cmp["seconds"] = time.perf_counter() - t0
     print("train step card vs CPU: " + json.dumps(train_cmp), flush=True)
+    bf16 = dict(spec_eval=bf16_eval_phase(dev, store, "spec"), train_step=bf16_train_phase(dev, store))
+    for name in ("spec_eval", "train_step"):
+        print(f"bf16 phase, {name}, card vs CPU ({card}): " + json.dumps(bf16[name]), flush=True)
     del store
 
     ms_store = make_multiseg_store(dev, 35, 40, 6, seed=1)
@@ -2471,6 +2802,11 @@ def main() -> int:
     wav_cmp = card_vs_cpu_phase(dev, wav_store, "wav")
     wav_cmp["seconds"] = time.perf_counter() - t0
     print("wav card vs CPU: " + json.dumps(wav_cmp), flush=True)
+    bf16["wav_eval"] = bf16_eval_phase(dev, wav_store, "wav")
+    print(f"bf16 phase, wav_eval, card vs CPU ({card}): " + json.dumps(bf16["wav_eval"]), flush=True)
+    bf16_launches = [sum(row["launches"][i] for row in bf16.values()) for i in range(3)]
+    if not all(bf16_launches):
+        raise AssertionError(f"the bf16 phase launched K1-K3 {bf16_launches} times")
     wav_train = train_phase(dev, wav_store, train_exp("wav", tasks=4, episode_batch=1), WAV_LAUNCHES,
                             epochs=1, profile_steps=2)
     print(f"wav train phase ({card}): " + json.dumps(wav_train), flush=True)
@@ -2534,6 +2870,8 @@ def main() -> int:
     print("raw-audio CLI: " + json.dumps(cli), flush=True)
     train_cli = train_cli_phase()
     print("cli.train_test: " + json.dumps(train_cli), flush=True)
+    resume = resume_phase()
+    print(f"resume on the card ({card}): " + json.dumps(resume), flush=True)
     entry = entry_points_phase(dev)
     for name, row in entry.items():
         print(f"entry points, {name} ({card}): " + json.dumps(row), flush=True)
@@ -2609,6 +2947,7 @@ def main() -> int:
             launches_per_dp_one_rank_step=dp1["bf16"]["launches_per_step"][i],
             launches_per_dp_rank_step_two_ranks=dp2["launches_per_step"][0][0][i],
             launches_per_classifier_encode_call=entry["classifier"]["launches_per_encode_call"][0][i],
+            launches_bf16_phase=bf16_launches[i],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

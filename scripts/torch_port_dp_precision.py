@@ -45,6 +45,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_port_dp_precision: needs a CUDA device", file=sys.stderr)
         return 1
+    from audio_few_shot_learning_tpu_torch.device import resolve_device
     from audio_few_shot_learning_tpu_torch.models.encoders import BandwidthBatchNorm, HeadBatchNorm
     from audio_few_shot_learning_tpu_torch.ops import cuda_build
     from audio_few_shot_learning_tpu_torch.parallel import dryrun as d
@@ -53,9 +54,7 @@ def main(argv=None) -> int:
     from audio_few_shot_learning_tpu_torch.train.engine import TrainDraws, Trainer
 
     cuda_build.build(["specaugment", "protohead", "mel"])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
+    dev = resolve_device("cuda:0")  # TF32 off
     ranks = run_ranks(d._rank, 2, ("flagship", E // 2, "cuda", E), backend="gloo", timeout_s=600)
     exp, mdl, _ = d.dryrun_configs("flagship", E, tasks=d.STEPS * E, eval_batch=E, device="cuda")
     store = d.dryrun_store("flagship", dev)

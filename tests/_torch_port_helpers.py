@@ -1,6 +1,7 @@
 """Shared set-up of the PyTorch port's parity tests (tests/test_torch_port_*.py).
 
-Both packages get the same configuration dict, both run in float32, the JAX
+Both packages get the same configuration dict, in float32 unless a test asks
+for another ``compute_dtype`` (the bf16 tests), the JAX
 model's variables are made once per geometry and handed to the port through
 ``weights.from_jax_variables`` as numpy arrays, and randomness enters as
 numpy data.
@@ -14,6 +15,7 @@ from collections.abc import Mapping
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from audio_few_shot_learning_tpu import config as jcfg
@@ -71,7 +73,7 @@ GEOMETRIES = {
 }
 
 
-def exp_dict(use_attention=True, fold_bn_eval=True, **over):
+def exp_dict(use_attention=True, fold_bn_eval=True, compute_dtype="float32", **over):
     d = {
         "encoder_name": "Hybrid",
         "use_attention": use_attention,
@@ -79,20 +81,20 @@ def exp_dict(use_attention=True, fold_bn_eval=True, **over):
         "n_way_test": 3, "n_shot_test": 2, "n_query_test": 2,
         "specaug_params": SPECAUG,
         "test_query_augmentations": True,
-        "tpu": {"compute_dtype": "float32", "fold_bn_eval": fold_bn_eval, "eval_episode_batch": 2},
+        "tpu": {"compute_dtype": compute_dtype, "fold_bn_eval": fold_bn_eval, "eval_episode_batch": 2},
         "device": "cpu",
     }
     d.update(over)
     return d
 
 
-def configs(geometry: str, use_attention=True, fold_bn_eval=True):
+def configs(geometry: str, use_attention=True, fold_bn_eval=True, compute_dtype="float32"):
     """(jax exp, jax mdl, port exp, port mdl, feat_shape) from one dict."""
     feat_shape, mdl = GEOMETRIES[geometry]
     if not use_attention:  # the projection then reads encoder features
         out_dim = mdl["Hybrid"].get("out_dim", 64)
         mdl = {**mdl, "Projection": {**mdl["Projection"], "input_dim": out_dim}}
-    e = exp_dict(use_attention, fold_bn_eval)
+    e = exp_dict(use_attention, fold_bn_eval, compute_dtype)
     return (
         jcfg.ExperimentConfig.from_dict(e),
         jcfg.ModelConfig.from_dict(mdl),
@@ -100,6 +102,32 @@ def configs(geometry: str, use_attention=True, fold_bn_eval=True):
         tcfg.ModelConfig.from_dict(mdl),
         feat_shape,
     )
+
+
+_JAX_PACKER_DIR = []  # one private build directory per test process
+
+
+@pytest.fixture
+def jax_native_packer(tmp_path_factory, monkeypatch):
+    """The JAX package's native packer, built into a directory of this test
+    process. Its own build writes ``native/build/libafslnpy.so`` in place
+    (``g++ -o``, audio_few_shot_learning_tpu/data/native_pack.py:29-39):
+    under ``pytest -n`` another worker may be writing that file while this
+    one loads it, the load fails, the module remembers the failure and its
+    dataset loader falls back to numpy ``(x - mean) / std``, 1 ulp off the
+    packer's ``x * (1 / std)``. With this fixture the comparison is always
+    native against native."""
+    from audio_few_shot_learning_tpu.data import native_pack as jax_native
+
+    if not _JAX_PACKER_DIR:
+        _JAX_PACKER_DIR.append(tmp_path_factory.mktemp("jax_native_pack"))
+    build = _JAX_PACKER_DIR[0]
+    monkeypatch.setattr(jax_native, "_BUILD_DIR", build)
+    monkeypatch.setattr(jax_native, "_LIB_PATH", build / "libafslnpy.so")
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_lib_failed", False)
+    assert jax_native.native_available(), "the JAX package's native packer did not build"
+    return jax_native
 
 
 def to_numpy_tree(tree):

@@ -22,6 +22,7 @@ from audio_few_shot_learning_tpu_torch.config import (  # noqa: E402
 )
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore  # noqa: E402
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore  # noqa: E402
+from audio_few_shot_learning_tpu_torch.device import resolve_device  # noqa: E402
 from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment  # noqa: E402
 from audio_few_shot_learning_tpu_torch.train.engine import Trainer  # noqa: E402
 
@@ -32,9 +33,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda:0")
+    return resolve_device("cuda:0")  # TF32 off, as the entry points run
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

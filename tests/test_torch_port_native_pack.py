@@ -7,7 +7,10 @@ float32 and float64, packed to float32 and to bfloat16 (the bits against
 ml_dtypes' rounding, special values included), and the port's numpy path
 (``native_pack.normalize``, for irregular files) computes the same float32
 values. A dataset whose files the packer does not take goes to the numpy
-path; a missing compiler or a failed build raises.
+path; a missing compiler or a failed build raises. The JAX package's packer
+is built into a directory of the test process (``jax_native_packer``), so
+that no other pytest worker's build of its shared file can send it to its
+numpy fallback.
 """
 
 import ml_dtypes
@@ -15,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import jax_native_packer  # noqa: F401  (a fixture)
 from audio_few_shot_learning_tpu.config import ExperimentConfig as JaxExperimentConfig
-from audio_few_shot_learning_tpu.data import native_pack as jax_native
 from audio_few_shot_learning_tpu.data.datasets import MetaAudioDataset as JaxDataset
 from audio_few_shot_learning_tpu_torch import config as tcfg
 from audio_few_shot_learning_tpu_torch.data import native_pack
@@ -36,7 +39,8 @@ def _files(tmp_path, shapes, rng):
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
-def test_probe_matches_jax(tmp_path, ndim):
+def test_probe_matches_jax(tmp_path, ndim, jax_native_packer):
+    jax_native = jax_native_packer
     shapes = [(8, 5), (8, 5)] if ndim == 2 else [(3, 8, 5), (1, 8, 5), (2, 8, 5)]
     paths, _ = _files(tmp_path, shapes, np.random.default_rng(0))
     np.save(tmp_path / "w.npy", np.zeros(77))
@@ -53,7 +57,8 @@ def test_probe_matches_jax(tmp_path, ndim):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ndim", [2, 3])
-def test_flat_pack_matches_jax_and_numpy(tmp_path, ndim, dtype):
+def test_flat_pack_matches_jax_and_numpy(tmp_path, ndim, dtype, jax_native_packer):
+    jax_native = jax_native_packer
     rng = np.random.default_rng(1)
     shapes = [(8, 5)] * 6 if ndim == 2 else [(int(rng.integers(1, 4)), 8, 5) for _ in range(6)]
     paths, arrays = _files(tmp_path, shapes, rng)
@@ -93,7 +98,7 @@ def _dataset(tmp_path, **kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dataset_packs_as_the_jax_package(tmp_path, dtype):
+def test_dataset_packs_as_the_jax_package(tmp_path, dtype, jax_native_packer):
     """``to_packed_store`` and ``to_host_store`` through the native packer
     equal the JAX package's native pack of the same multi-segment split."""
     root = _dataset(tmp_path, multi_segm=True, max_segments=3)

@@ -41,9 +41,9 @@ import optax
 import pytest
 import torch
 
-from _torch_port_helpers import (
-    GEOMETRIES, configs, exp_dict, jax_episode_chain_draws, jax_variables, jax_views, numpy_draws,
-    split_chain, torch_chain, torch_draws,
+from _torch_port_helpers import (  # noqa: F401  (jax_native_packer: a fixture)
+    GEOMETRIES, configs, exp_dict, jax_episode_chain_draws, jax_native_packer, jax_variables, jax_views,
+    numpy_draws, split_chain, torch_chain, torch_draws,
 )
 from audio_few_shot_learning_tpu import config as jcfg
 from audio_few_shot_learning_tpu.data.episodes import EpisodeBatch as JaxEpisodeBatch
@@ -463,11 +463,12 @@ def test_train_test_cli_completes_a_run(tmp_path):
         torch.load(out / "model.ckpt", weights_only=True), strict=True)
 
 
-def test_datasets_match_the_jax_package(tmp_path):
+def test_datasets_match_the_jax_package(tmp_path, jax_native_packer):
     """The port's synthetic dataset writes the JAX package's files, and the
     port's loader packs the split the JAX package packs (both through their
-    native packers, to the bit); ``host_store: true`` gives a HostStore of
-    the same segments."""
+    native packers, to the bit: ``jax_native_packer`` keeps the JAX one off
+    its numpy fallback); ``host_store: true`` gives a HostStore of the same
+    segments."""
     from audio_few_shot_learning_tpu.data.datasets import MetaAudioDataset as JaxDataset
     from audio_few_shot_learning_tpu.data.datasets import make_synthetic_dataset as jax_make
     from audio_few_shot_learning_tpu_torch.data.datasets import load_packed_split, make_synthetic_dataset
