@@ -16,7 +16,8 @@ replaced by one ``torch.Generator`` on the store's device:
   segments (the reference's batch_creation.py:53-72 gives a ragged list).
 
 ``sample_episode`` draws from a ``PackedStore`` of spectrograms or a
-``PackedWavStore`` of waveforms, with the same class and item draws.
+``PackedWavStore`` of waveforms, with the same class and item draws;
+``sample_wav_episode`` takes waveform stores only, a ``WavHostStore`` too.
 Padded spectrogram rows are zeros; padded waveform rows repeat the item's
 last segment, as in the JAX package.
 """
@@ -163,3 +164,28 @@ def sample_episode_batch(
     """``sample_episode`` under the JAX package's name and argument order
     (``data/episodes.py:224``), a ``torch.Generator`` in place of its key."""
     return sample_episode(gen, store, n_way, k_support, k_query, batch, is_test)
+
+
+def sample_wav_episode(
+    gen,
+    store,
+    n_way: int,
+    k_support: int,
+    k_query: int,
+    is_test: bool,
+    batch: int = 1,
+) -> EpisodeBatch:
+    """A waveform store's episodes under the JAX package's name and argument
+    order (``data/episodes.py:158``): rows ``[E, .., L]`` of raw waveform,
+    the log-mel comes downstream. A ``PackedWavStore`` draws on the card
+    with ``gen`` a ``torch.Generator`` (``sample_episode``); a
+    ``WavHostStore`` on the host with ``gen`` a numpy Generator (its
+    ``sample_episode_batch``). A spectrogram store raises."""
+    from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
+
+    if isinstance(store, PackedWavStore):
+        return sample_episode(gen, store, n_way, k_support, k_query, batch, is_test)
+    if isinstance(store, WavHostStore):
+        return store.sample_episode_batch(gen, n_way, k_support, k_query, is_test, batch)
+    raise TypeError(f"sample_wav_episode takes a PackedWavStore or a WavHostStore, not {type(store).__name__}; "
+                    "spectrogram stores go through sample_episode")

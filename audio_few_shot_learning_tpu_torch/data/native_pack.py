@@ -127,6 +127,23 @@ def pack_files_flat(paths: Sequence, out: torch.Tensor, offsets: np.ndarray, mea
         raise RuntimeError(f"native packer: {failures} of {len(paths)} files failed")
 
 
+def pack_files(paths: Sequence, out: np.ndarray, mean: float, std: float, threads: int = DEFAULT_THREADS) -> bool:
+    """File i's normalized payload into ``out[i].ravel()[:elems]`` of a
+    C-contiguous float32 numpy ``out [n, ...]``, through ``pack_files_flat``
+    at a fixed row stride; the rest of each row keeps its contents (the JAX
+    ``pack_files``, data/native_pack.py:133). Returns True. Where the JAX
+    function returns False so its caller falls back to numpy, this raises:
+    an ``out`` of another dtype or layout, a file the packer cannot read or
+    one larger than a row."""
+    if out.dtype != np.float32 or not out.flags.c_contiguous or out.shape[:1] != (len(paths),):
+        raise ValueError(f"pack_files writes a C-contiguous float32 [{len(paths)}, ...] array, not {out.dtype} "
+                         f"{out.shape} (C-contiguous: {out.flags.c_contiguous})")
+    stride = int(np.prod(out.shape[1:]))
+    pack_files_flat(paths, torch.from_numpy(out), np.arange(len(paths) + 1, dtype=np.int64) * stride,
+                    mean, std, threads)
+    return True
+
+
 def normalize(x: np.ndarray, mean: float, std: float) -> np.ndarray:
     """The packer's arithmetic in numpy, as float32: ``(x - mean) * inv_std``
     in float32 for a float32 array, in float64 then rounded for a float64

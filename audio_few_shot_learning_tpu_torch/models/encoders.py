@@ -285,13 +285,21 @@ class _LogitsHead(nn.Sequential):
         return self[2](self[1](self[0](x, gen), view_groups))
 
 
-def _conv_stack(
-    channels: int, pool: Tuple[int, int], fold_bn_eval: bool, remat: bool
-) -> nn.ModuleList:
-    # the input gets one channel axis (the JAX package's x[..., None])
-    return nn.ModuleList(
-        ConvBlock(1 if i == 0 else channels, channels, pool, fold_bn_eval, remat) for i in range(NUM_BLOCKS)
-    )
+class ConvEncoder(nn.ModuleList):
+    """Four conv blocks (JAX ``ConvEncoder``, models/encoders.py:237-271), the
+    reference's ``conv_encoder`` with children ``0``-``3``. Input ``[B, 1,
+    F, T]`` in the compute dtype, output ``[B, C, F', T']``."""
+
+    def __init__(self, channels: int, pool: Tuple[int, int], fold_bn_eval: bool = False, remat: bool = False):
+        # the input has one channel (the JAX package's x[..., None])
+        super().__init__(
+            ConvBlock(1 if i == 0 else channels, channels, pool, fold_bn_eval, remat) for i in range(NUM_BLOCKS)
+        )
+
+    def forward(self, x: torch.Tensor, view_groups: Optional[ViewGroups] = None) -> torch.Tensor:
+        for block in self:
+            x = block(x, view_groups)
+        return x
 
 
 class StandardCNN(nn.Module):
@@ -310,16 +318,14 @@ class StandardCNN(nn.Module):
         self.compute_dtype = torch_dtype(compute_dtype)
         self.channels = cfg.hidden_channels
         self.out_dim = cfg.out_dim
-        self.conv_encoder = _conv_stack(cfg.hidden_channels, cfg.pool_dim, fold_bn_eval, remat)
+        self.conv_encoder = ConvEncoder(cfg.hidden_channels, cfg.pool_dim, fold_bn_eval, remat)
         fp, tp = conv_output_shape(feat_shape, cfg.pool_dim)
         self.logits = _LogitsHead(cfg.hidden_channels * fp * tp, cfg.out_dim)
 
     def forward(
         self, x: torch.Tensor, gen: Optional[torch.Generator] = None, view_groups: Optional[ViewGroups] = None
     ) -> torch.Tensor:
-        x = x[:, None].to(self.compute_dtype)
-        for block in self.conv_encoder:
-            x = block(x, view_groups)
+        x = self.conv_encoder(x[:, None].to(self.compute_dtype), view_groups)
         x = x.to(self.logits[2].weight.dtype).flatten(1)  # the reference's NCHW view(B, -1)
         return self.logits(x, gen, view_groups)
 
@@ -344,7 +350,7 @@ class StandardHybrid(nn.Module):
         self.compute_dtype = torch_dtype(compute_dtype)
         c = self.channels = cfg.hidden_channels
         self.out_dim = cfg.out_dim
-        self.conv_encoder = _conv_stack(c, cfg.pool_dim, fold_bn_eval, remat)
+        self.conv_encoder = ConvEncoder(c, cfg.pool_dim, fold_bn_eval, remat)
         fp, _ = conv_output_shape(feat_shape, cfg.pool_dim)
         self.hidden = fp * c
         self.seq_layers = Recurrent(
@@ -355,9 +361,7 @@ class StandardHybrid(nn.Module):
     def forward(
         self, x: torch.Tensor, gen: Optional[torch.Generator] = None, view_groups: Optional[ViewGroups] = None
     ) -> torch.Tensor:
-        x = x[:, None].to(self.compute_dtype)
-        for block in self.conv_encoder:
-            x = block(x, view_groups)
+        x = self.conv_encoder(x[:, None].to(self.compute_dtype), view_groups)
         x = x.to(self.logits[2].weight.dtype)  # the head's dtype: float32 but in a float64 reference
         b, c, fp, tp = x.shape
         seq = x.permute(0, 3, 2, 1).reshape(b, tp, fp * c)  # [B, T', (F', C)]

@@ -164,6 +164,31 @@ def eval_episode_bytes(
     return items * channels * feat_shape[0] * feat_shape[1] * itemsize + chain_rows * chain_row_bytes
 
 
+def measure_eval_peak(trainer: "Trainer", store, n_tasks: int, n_way: int, k_shot: int, k_query: int,
+                      augment_query: bool, tie_strategy: str = "") -> Dict[str, float]:
+    """One multi-segment eval batch at the E the engine reckons for
+    ``n_tasks`` tasks, on the card: E, the free memory the rule read, one
+    episode's reckoned block-0 bytes, and the peak of allocated memory over
+    the batch above what was allocated before it, as bytes and over
+    ``E x eval_episode_bytes`` (``peak_factor``, held under
+    ``EVAL_PEAK_FACTOR`` by its callers)."""
+    dev = trainer.device
+    if dev.type != "cuda":
+        raise ValueError("the eval peak is measured on the card")
+    torch.cuda.synchronize(dev)
+    free_card = torch.cuda.mem_get_info(dev)[0]
+    free = free_card + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    e = trainer.eval_batch_size(store, n_tasks, n_way, k_shot, k_query, augment_query, True)
+    episode = trainer.episode_bytes(store, n_way, k_shot, k_query, augment_query)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.evaluate(store, e, n_way, k_shot, k_query, augment_query, True, tie_strategy)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return dict(eval_batch=e, ran_batch=trainer.last_eval_batch, free_bytes=free, free_reported_by_card=free_card,
+                episode_bytes=episode, peak_bytes=peak, peak_factor=peak / (e * episode),
+                peak_share_of_free=peak / free)
+
+
 def _slice_tree(obj, sl: slice):
     """``obj`` with every tensor in it (dataclass fields, tuples) sliced on
     its leading episode axis; None stays None."""

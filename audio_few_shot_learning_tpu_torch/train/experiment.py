@@ -5,9 +5,10 @@ Per run: a fresh model from the run's seed -> epochs of training, each
 followed by validation, early stopping and a best-checkpoint write -> the
 best checkpoint reloaded -> ``Trainer.test()``. Beyond the reference: a
 resume checkpoint after every epoch (model, optimizer, schedule, generator,
-epoch and early-stopping counters), a per-epoch JSONL metrics log, an
-episodes/s counter, and a divergence guard that stops a run whose loss goes
-non-finite and keeps a crash checkpoint of it.
+epoch and early-stopping counters), a per-epoch JSONL metrics log (with the
+epoch's median train step in ms), an episodes/s counter, and a divergence
+guard that stops a run whose loss goes non-finite and keeps a crash
+checkpoint of it.
 
 On a mesh of W ranks (``tpu.mesh_shape``, under ``torchrun``) every rank
 runs this flow on its own device and rank 0 alone writes ``config.json``,
@@ -24,6 +25,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import time
 from typing import Dict, List, Optional, Union
 
@@ -101,6 +103,7 @@ def run_single_training(
                 "val_accuracy": val_acc,
                 "val_accuracy_std": val_std,
                 "episodes_per_sec": eps_per_sec,
+                "step_ms": statistics.median(trainer.last_step_ms),  # the epoch's median train step
             }
             history.append(row)
             metrics_log.log(step=epoch, metrics=row)

@@ -1,5 +1,6 @@
-"""Profiling: a ``torch.profiler`` trace around a block, and the
-episodes/s counter (counterpart of the JAX package's ``utils/profiling.py``).
+"""Profiling: a ``torch.profiler`` trace around a block, the episodes/s
+counter (counterpart of the JAX package's ``utils/profiling.py``), and the
+kernels' launch counts per call of a method (``launches_per_call``).
 
 ``profile_trace`` records the host's ops and, for work on the card, its
 kernels and copies, and writes a Chrome trace (``*.pt.trace.json``, which
@@ -11,9 +12,10 @@ records nothing would hide what the device did.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
-from typing import Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -50,3 +52,38 @@ class EpisodeThroughput:
         self.total_episodes += episodes
         self.value = eps if self.value is None else self.alpha * eps + (1 - self.alpha) * self.value
         return self.value
+
+
+def kernel_counters() -> tuple:
+    """The wrappers of K1 (SpecAugment views), K2 (episode scores) and K3
+    (mel + log); each counts its kernel's launches in ``.launches``."""
+    from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
+
+    return specaugment.views_cuda, protohead.episode_scores_cuda, mel.mel_log_cuda
+
+
+def tally_launches(rows: List[List[int]]) -> Dict[str, int]:
+    """``{"K1 K2 K3": calls}``: how many recorded calls launched each
+    pattern of K1, K2, K3 launches."""
+    return {" ".join(map(str, k)): n for k, n in collections.Counter(map(tuple, rows)).items()}
+
+
+@contextlib.contextmanager
+def launches_per_call(owner, name: str, out: List[List[int]]):
+    """While the block runs, each call of ``owner.name`` (a method of a
+    class, e.g. ``Trainer.train_step``) appends the K1, K2, K3 launches it
+    made to ``out``, read off the counters around the call."""
+    counters = kernel_counters()
+    fn = getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        before = [k.launches for k in counters]
+        result = fn(*args, **kwargs)
+        out.append([k.launches - b for k, b in zip(counters, before)])
+        return result
+
+    setattr(owner, name, counted)
+    try:
+        yield out
+    finally:
+        setattr(owner, name, fn)

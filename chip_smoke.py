@@ -194,7 +194,22 @@ Imports nothing of JAX or of the JAX package. In order it:
    straight through against 1 epoch, a resume checkpoint and 1 resumed
    epoch from the same seed: step, generator and epoch equal, parameters
    within 2 lr a step, validation accuracy within ``RESUME_VAL_ATOL``;
-28. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+28. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line;
+29. the parity runbook, after the ``--resume`` phase, in a directory under
+   ``build/``: ``scripts/torch_port_parity_runbook.py --dry-run``
+   in-process over the 15 shipped configs (each on its fabricated split, 2
+   epochs of 4 tasks, 8 test tasks, bf16): return code 0, each cell's
+   accuracy finite, launches per train step and per eval batch K1 2, K2 1,
+   K3 0 (the plain configs, SpecAugment off: K1 0), and each multi-segment
+   cell's peak over one eval batch under ``EVAL_PEAK_FACTOR`` x its
+   reckoned block-0 bytes; prints each cell's line and the phase's seconds;
+30. the full protocol cut to ``--epochs 3 --tasks 16 --test-tasks 64``:
+   ``scripts/torch_port_full_protocol.py`` in-process, one single-segment
+   and one multi-segment run in bf16 through ``cli.train_test``:
+   ``result_run0.json`` of both and ``summary.json`` with the JAX script's
+   keys and the port's, launches per train step and eval batch K1 2, K2 1,
+   K3 0, the test run on the weights of the run's ``model.ckpt`` (the
+   best-model reload), test accuracy above 0.4.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -650,9 +665,9 @@ def multiseg_launches(i, flagship, s36, wav) -> dict:
 
 
 def kernel_counters():
-    from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
+    from audio_few_shot_learning_tpu_torch.utils.profiling import kernel_counters as counters
 
-    return (specaugment.views_cuda, protohead.episode_scores_cuda, mel.mel_log_cuda)
+    return counters()
 
 
 def serve_phase(dev, store, input_type, expected, waveaug=None):
@@ -1398,6 +1413,134 @@ def resume_phase():
                 loss_straight=h_s["loss"], loss_resumed=h_r["loss"], seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# the protocol drivers: the parity runbook's dry run, the full protocol cut
+# ---------------------------------------------------------------------------
+
+PROTOCOL_EPOCHS, PROTOCOL_TASKS, PROTOCOL_TEST_TASKS = 3, 16, 64
+PROTOCOL_ACC = 0.4  # 5-way chance is 0.2
+
+
+def load_script(name: str):
+    """A script of ``scripts/`` as a module, to drive it in-process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def launches_key(launches) -> str:
+    """The drivers' key of a call's K1 K2 K3 launches."""
+    from audio_few_shot_learning_tpu_torch.utils.profiling import tally_launches
+
+    (key,) = tally_launches([launches])
+    return key
+
+
+def per_call(counts: dict, i: int) -> int:
+    """Kernel ``i``'s launches per call from a driver's ``{"K1 K2 K3": calls}``
+    record, whose calls the phases have held to one pattern."""
+    (key,) = counts
+    return int(key.split()[i])
+
+
+def parity_dry_run_phase():
+    """``scripts/torch_port_parity_runbook.py --dry-run`` in-process over the
+    15 shipped configs, in a directory under ``build/``: its return code 0,
+    every cell's accuracy finite, every train step and eval batch launching
+    K1 2, K2 1, K3 0 (plain configs, which turn SpecAugment off: K1 0), and
+    each multi-segment cell's eval peak over its reckoned bytes under
+    ``EVAL_PEAK_FACTOR``."""
+    from audio_few_shot_learning_tpu_torch.train import engine
+
+    runbook = load_script("torch_port_parity_runbook")
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        out = os.path.join(tmp, "PARITY_TORCH_DRYRUN.md")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = runbook.main(["--dry-run", "--quiet", "--data-root", os.path.join(tmp, "data"),
+                               "--experiments-root", os.path.join(tmp, "experiments"), "--out", out])
+        with open(os.path.join(tmp, "PARITY_TORCH_DRYRUN.json")) as f:
+            cells = json.load(f)
+    seconds = time.perf_counter() - t0
+    if rc != 0 or len(cells) != 15 or any("error" in c for c in cells):
+        raise AssertionError(f"the parity dry run returned {rc}: {[c for c in cells if 'error' in c]}")
+    for c in cells:
+        want = launches_key(SPEC_LAUNCHES if c["specaugment"] else PLAIN_LAUNCHES)
+        if set(c["launches_per_train_step"]) != {want} or set(c["launches_per_eval_batch"]) != {want}:
+            raise AssertionError(f"{c['dataset']} / {c['loss']}: launches per train step "
+                                 f"{c['launches_per_train_step']}, per eval batch {c['launches_per_eval_batch']}; "
+                                 f"expected {want} for each")
+        if not (np.isfinite(c["mean_accuracy"]) and 0.0 <= c["mean_accuracy"] <= 1.0):
+            raise AssertionError(f"{c['dataset']} / {c['loss']}: accuracy {c['mean_accuracy']}")
+        if c["multi_segm"] and not c["eval_peak_factor"] <= engine.EVAL_PEAK_FACTOR:
+            raise AssertionError(f"{c['dataset']} / {c['loss']}: eval peak {c['eval_peak_factor']} x the reckoned "
+                                 f"bytes at E={c['eval_batch']}, above EVAL_PEAK_FACTOR {engine.EVAL_PEAK_FACTOR}")
+    return dict(lines=[runbook.cell_line(c) for c in cells], cells=cells, seconds=seconds)
+
+
+def full_protocol_phase():
+    """``scripts/torch_port_full_protocol.py --epochs 3 --tasks 16
+    --test-tasks 64``, one single-segment and one multi-segment run in bf16,
+    in-process, in a directory under ``build/``: ``result_run0.json`` of
+    both passes and ``summary.json`` with the JAX script's keys
+    (``experiments/full_protocol/summary.json``) and the port's, launches
+    per train step and per eval batch K1 2, K2 1, K3 0, the test run on the
+    weights of the run's ``model.ckpt`` (the best-model reload), and test
+    accuracy above ``PROTOCOL_ACC``."""
+    protocol = load_script("torch_port_full_protocol")
+    with open(os.path.join(REPO, "experiments", "full_protocol", "summary.json")) as f:
+        jax_summary = json.load(f)
+    port_keys = {"card", "compute_dtype", "torch"}
+    port_pass_keys = {"compute_dtype", "device", "peak_memory_allocated_gb", "launches_per_train_step",
+                      "launches_per_eval_batch", "train_steps", "eval_batches"}
+    port_run_keys = {"epochs_ran", "best_val_epoch", "step_ms_first_epochs_median", "step_ms_last_epochs_median",
+                     "val_curve", "test_ran_on_model_ckpt"}
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = os.path.join(tmp, "experiments")
+        with contextlib.redirect_stdout(io.StringIO()):
+            protocol.main(["--runs", "1", "--mseg-runs", "1", "--epochs", str(PROTOCOL_EPOCHS), "--tasks",
+                           str(PROTOCOL_TASKS), "--test-tasks", str(PROTOCOL_TEST_TASKS), "--experiments-root", root])
+        with open(os.path.join(root, "torch_full_protocol_bf16", "summary.json")) as f:
+            summary = json.load(f)
+        missing_results = [d for d in ("torch_full_protocol_bf16", "torch_full_protocol_mseg_bf16")
+                           if not os.path.exists(os.path.join(root, d, "result_run0.json"))]
+    seconds = time.perf_counter() - t0
+    if missing_results:
+        raise AssertionError(f"the full protocol wrote no result_run0.json in {missing_results}")
+    if not (set(jax_summary) | port_keys) <= set(summary):
+        raise AssertionError(f"summary.json keys {sorted(summary)}")
+    want = launches_key(SPEC_LAUNCHES)
+    out = dict(seconds=seconds, card=summary["card"])
+    for key in ("single_segment", "multi_segment"):
+        got = summary[key]
+        run = got["per_run"][0]
+        if not ((set(jax_summary[key]) | port_pass_keys) <= set(got)
+                and (set(jax_summary[key]["per_run"][0]) | port_run_keys) <= set(run)):
+            raise AssertionError(f"{key}: summary keys {sorted(got)}, run keys {sorted(run)}")
+        if got["launches_per_train_step"] != {want: PROTOCOL_EPOCHS * PROTOCOL_TASKS} or \
+                set(got["launches_per_eval_batch"]) != {want}:
+            raise AssertionError(f"{key}: launches per train step {got['launches_per_train_step']}, per eval batch "
+                                 f"{got['launches_per_eval_batch']}; expected {want}")
+        if run["test_ran_on_model_ckpt"] is not True:
+            raise AssertionError(f"{key}: the test did not run on the best checkpoint's weights")
+        if not run["test_acc"] > PROTOCOL_ACC:
+            raise AssertionError(f"{key}: test accuracy {run['test_acc']} not above {PROTOCOL_ACC}")
+        out[key] = {k: got[k] for k in ("wall_clock_seconds", "peak_memory_allocated_gb", "launches_per_train_step",
+                                        "launches_per_eval_batch", "eval_batches")}
+        out[key].update({k: run[k] for k in ("test_acc", "best_val_acc", "best_val_epoch", "epochs_ran",
+                                             "step_ms_first_epochs_median", "step_ms_last_epochs_median",
+                                             "train_eps_per_sec", "val_curve")})
+    return out
+
+
 DP_PARAM_LR = 8.0  # 4 Adam steps, each ~lr * sign(g): a flipped sign moves a parameter 2 lr a step
 
 
@@ -1561,25 +1704,6 @@ ROUND_TRIP_SCORE_ATOL = 1e-6
 PROFILE_STEPS = 8
 
 
-@contextlib.contextmanager
-def step_launches(trainer_cls, kernels, out: list):
-    """Record each ``train_step``'s launches of every kernel in ``out``,
-    read off the counters before and after the step."""
-    step = trainer_cls.train_step
-
-    def counted(self, ep, draws=None):
-        before = [k.launches for k in kernels]
-        metrics = step(self, ep, draws)
-        out.append([k.launches - b for k, b in zip(kernels, before)])
-        return metrics
-
-    trainer_cls.train_step = counted
-    try:
-        yield out
-    finally:
-        trainer_cls.train_step = step
-
-
 def sweep_exp_dict(data_root) -> dict:
     """``configs/esc50_apl.json`` pointed at the synthetic set: 2 epochs x 16
     tasks at E=1, 32 test tasks, bf16."""
@@ -1611,6 +1735,7 @@ def entry_points_phase(dev):
     from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params, spec_augment_views
     from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+    from audio_few_shot_learning_tpu_torch.utils.profiling import launches_per_call
 
     kernels = kernel_counters()
     out = {}
@@ -1631,7 +1756,7 @@ def entry_points_phase(dev):
             k.launches = 0
         per_step = []
         t0 = time.perf_counter()
-        with step_launches(Trainer, kernels, per_step), contextlib.redirect_stdout(io.StringIO()):
+        with launches_per_call(Trainer, "train_step", per_step), contextlib.redirect_stdout(io.StringIO()):
             run_sweep.main(["-e", exp_json, "-m", mdl_json, "--key", "angle", "--values", *SWEEP_VALUES,
                             "--runs", str(SWEEP_RUNS), "--experiments-root", root])
         torch.cuda.synchronize()
@@ -1986,17 +2111,11 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
     aug = exp.test_query_augmentations
     run = dict(n_way=N_WAY, k_shot=K_SHOT, k_query=K_QUERY, augment_query=aug, multisegment=True)
 
-    torch.cuda.synchronize()
-    free_card = torch.cuda.mem_get_info(dev)[0]
-    free = free_card + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    e = trainer.eval_batch_size(store, tasks, N_WAY, K_SHOT, K_QUERY, aug, True)
-    episode_bytes = trainer.episode_bytes(store, N_WAY, K_SHOT, K_QUERY, aug)
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    trainer.evaluate(store, e, tie_strategy=exp.tie_strategy, **run)  # one batch; warms cuDNN up
-    peak = torch.cuda.max_memory_allocated(dev) - base
-    factor = peak / (e * episode_bytes)
-    if not (trainer.last_eval_batch == e and factor <= engine.EVAL_PEAK_FACTOR
+    # one batch at the reckoned E; warms cuDNN up
+    m = engine.measure_eval_peak(trainer, store, tasks, N_WAY, K_SHOT, K_QUERY, aug, exp.tie_strategy)
+    e, episode_bytes, peak, factor = m["eval_batch"], m["episode_bytes"], m["peak_bytes"], m["peak_factor"]
+    free, free_card = m["free_bytes"], m["free_reported_by_card"]
+    if not (m["ran_batch"] == e and factor <= engine.EVAL_PEAK_FACTOR
             and peak <= engine.EVAL_MEMORY_SHARE * free):
         raise AssertionError(
             f"eval batch E={trainer.last_eval_batch} (reckoned {e}); its peak {peak / 1e9:.2f} GB is "
@@ -2872,6 +2991,13 @@ def main() -> int:
     print("cli.train_test: " + json.dumps(train_cli), flush=True)
     resume = resume_phase()
     print(f"resume on the card ({card}): " + json.dumps(resume), flush=True)
+    parity = parity_dry_run_phase()
+    for line in parity["lines"]:
+        print(f"parity dry run ({card}): {line}", flush=True)
+    print(f"parity dry run: 15 configs in {parity['seconds']:.1f} s", flush=True)
+    protocol = full_protocol_phase()
+    print(f"full protocol, cut to {PROTOCOL_EPOCHS} epochs x {PROTOCOL_TASKS} tasks ({card}): "
+          + json.dumps(protocol), flush=True)
     entry = entry_points_phase(dev)
     for name, row in entry.items():
         print(f"entry points, {name} ({card}): " + json.dumps(row), flush=True)
@@ -2948,6 +3074,10 @@ def main() -> int:
             launches_per_dp_rank_step_two_ranks=dp2["launches_per_step"][0][0][i],
             launches_per_classifier_encode_call=entry["classifier"]["launches_per_encode_call"][0][i],
             launches_bf16_phase=bf16_launches[i],
+            launches_per_protocol_train_step=per_call(protocol["single_segment"]["launches_per_train_step"], i),
+            launches_per_protocol_eval_batch=per_call(protocol["single_segment"]["launches_per_eval_batch"], i),
+            launches_per_parity_train_step={f"{c['dataset']}_{c['loss']}": per_call(c["launches_per_train_step"], i)
+                                            for c in parity["cells"]},
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,11 @@
 """PyTorch port: the public API against the JAX package's, on the CPU.
 
-* Every public name of the JAX package's ``data`` and ``ops`` packages (the
-  names defined in the package and its modules) exists in the port's, but
-  for ``JAX_ONLY`` below.
+* Every public name of each of the JAX package's nine subpackages exists in
+  the port's subpackage of the same name, but for ``JAX_ONLY`` below: the
+  names bound in the package, its modules, and each module's own top-level
+  names (``def``, ``class`` and assignments, read from its source) as
+  attributes of the port's module of the same name. ``RENAMED`` maps a
+  name the port spells otherwise, held equal in value.
 * The functions the port added for that, on the JAX package's inputs:
   ``pack_dataset`` gives the JAX ``PackedStore``'s segments, labels and
   class counts (bit-equal); ``make_synthetic_wav_dataset`` writes the JAX
@@ -12,11 +15,14 @@
   and, on given draws, the JAX views; ``time_warp`` is the warp view of
   ``views_reference`` on the same draws, and the JAX warp view;
   ``sample_episode_batch`` is ``sample_episode``; ``param_count`` counts the
-  JAX tree plus the reference's two unused LayerNorms.
-* Importing ``ops`` builds no kernel; resolving a card for an entry point
-  turns TF32 off.
+  JAX tree plus the reference's two unused LayerNorms. The counterparts of
+  the other subpackages' names are held in ``test_torch_port_interop.py``.
+* Importing any subpackage of the port imports no JAX and builds no kernel;
+  resolving a card for an entry point turns TF32 off.
 """
 
+import ast
+import importlib
 import inspect
 import pkgutil
 import subprocess
@@ -42,12 +48,36 @@ from audio_few_shot_learning_tpu_torch.config import SpecAugParams
 from audio_few_shot_learning_tpu_torch.ops.specaugment import draw_views_params, draw_warp_positions, views_reference
 from audio_few_shot_learning_tpu_torch.train.state import param_count
 
-# JAX names with no counterpart in the port, and why
+SUBPACKAGES = ("data", "ops", "models", "losses", "train", "parallel", "utils", "preprocessing", "cli")
+# JAX names with no counterpart in the port, and why; "module.name" is a
+# module's own name, a bare name is bound in the package (or is a module,
+# whose names are then all JAX-only)
 JAX_ONLY = {
-    jax_ops: {
+    "ops": {
         "pallas_utils",  # Pallas TPU helpers (tiling, interpret mode); the port's kernels are CUDA C++
     },
-    jax_data: set(),
+    "data": {
+        "native_pack.native_available",  # the port builds the packer or raises; there is nothing to probe
+    },
+    "train": {
+        # a flax train state (params, batch_stats, optax state); the port's
+        # Trainer holds the model, its torch optimizer and the schedule
+        "TrainState", "create_train_state", "state.TrainState", "state.create_train_state",
+    },
+    "parallel": {
+        # jax.sharding over a device mesh; the port's rank is a process:
+        "episode_sharding", "mesh.episode_sharding",  # EpisodeMesh.episode_shard / chunk_shard (this rank's slice)
+        "replicated", "mesh.replicated",  # EpisodeMesh.broadcast_ (the same tensors on every rank)
+        "shard_episode_keys", "mesh.shard_episode_keys",  # rank generators seeded seed + 1 + r * RANK_SEED_STRIDE
+        "mesh.from_process_local",  # EpisodeMesh.gather (each rank's episodes into one global batch)
+    },
+    "utils": {
+        "xla_flags",  # XLA_FLAGS merging for the TPU runtime; the port runs no XLA
+    },
+}
+# JAX name -> the port's name for the same thing, held equal in value
+RENAMED = {
+    "data": {"datasets.HOST_STORE_HBM_FRACTION": "datasets.HOST_STORE_MEMORY_FRACTION"},
 }
 LOG_MEL_ATOL_DB = 1e-3
 
@@ -65,11 +95,57 @@ def exported(pkg) -> set:
     return names
 
 
-@pytest.mark.parametrize("jax_pkg,port_pkg", [(jax_data, port_data), (jax_ops, port_ops)], ids=["data", "ops"])
-def test_port_exports_every_jax_name(jax_pkg, port_pkg):
-    missing = exported(jax_pkg) - JAX_ONLY[jax_pkg] - exported(port_pkg)
-    assert not missing, f"{port_pkg.__name__} lacks {sorted(missing)}"
-    assert not JAX_ONLY[jax_pkg] & exported(port_pkg)  # listed as JAX-only but ported
+def module_names(module) -> set:
+    """A module's own public top-level names: its ``def``s, ``class``es and
+    assigned names, read from its source."""
+    names = set()
+    for node in ast.parse(inspect.getsource(module)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def public_names(pkg, skip=frozenset()) -> set:
+    """``exported(pkg)`` plus ``module.name`` for each module's own names,
+    but for the modules in ``skip``."""
+    names = set(exported(pkg))
+    for info in pkgutil.iter_modules(pkg.__path__):
+        if info.name not in skip:
+            module = importlib.import_module(f"{pkg.__name__}.{info.name}")
+            names |= {f"{info.name}.{n}" for n in module_names(module)}
+    return names
+
+
+def port_has(port_pkg, name: str) -> bool:
+    """A bare name among ``exported(port_pkg)``; ``module.name`` an attribute
+    of the port's module of that name."""
+    if "." not in name:
+        return name in exported(port_pkg)
+    module, attr = name.split(".")
+    try:
+        return hasattr(importlib.import_module(f"{port_pkg.__name__}.{module}"), attr)
+    except ModuleNotFoundError:
+        return False
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_port_exports_every_jax_name(sub):
+    jax_pkg = importlib.import_module(f"audio_few_shot_learning_tpu.{sub}")
+    port_pkg = importlib.import_module(f"audio_few_shot_learning_tpu_torch.{sub}")
+    jax_only, renamed = JAX_ONLY.get(sub, set()), RENAMED.get(sub, {})
+    names = public_names(jax_pkg, skip={n for n in jax_only if "." not in n}) - jax_only
+    missing = sorted(n for n in names if not port_has(port_pkg, renamed.get(n, n)))
+    assert not missing, f"{port_pkg.__name__} lacks {missing}"
+    assert not {n for n in jax_only if port_has(port_pkg, n)}  # listed as JAX-only but ported
+    for jax_name, port_name in renamed.items():
+        assert jax_name in names and not port_has(port_pkg, jax_name)  # one name in the port
+        (jm, ja), (pm, pa) = jax_name.split("."), port_name.split(".")
+        assert getattr(importlib.import_module(f"{jax_pkg.__name__}.{jm}"), ja) == \
+            getattr(importlib.import_module(f"{port_pkg.__name__}.{pm}"), pa)
 
 
 def test_pack_dataset_packs_as_the_jax_package():
@@ -186,6 +262,28 @@ def test_importing_ops_builds_no_kernel():
             "assert not b._LIBS and not b._FUNCS, b._LIBS; "
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def subpackage_imports():
+    """Each subpackage imported in a fresh interpreter, all at once: what
+    each one's import left in ``sys.modules`` and in the kernels' and the
+    packer's caches."""
+    code = ("import sys; import audio_few_shot_learning_tpu_torch.{}; "
+            "from audio_few_shot_learning_tpu_torch.ops import cuda_build as b; "
+            "from audio_few_shot_learning_tpu_torch.data import native_pack as n; "
+            "assert not b._LIBS and not b._FUNCS and n._lib is None, b._LIBS; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'triton', 'audio_few_shot_learning_tpu')]; assert not bad, bad")
+    procs = {sub: subprocess.Popen([sys.executable, "-c", code.format(sub)], stderr=subprocess.PIPE, text=True)
+             for sub in SUBPACKAGES}
+    return {sub: (p.wait(timeout=120), p.stderr.read()) for sub, p in procs.items()}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_importing_a_subpackage_imports_no_jax_and_builds_no_kernel(sub, subpackage_imports):
+    rc, err = subpackage_imports[sub]
+    assert rc == 0, err
 
 
 def test_resolving_a_card_turns_tf32_off(monkeypatch):

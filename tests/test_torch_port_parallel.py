@@ -336,7 +336,7 @@ def test_train_test_cli_on_two_ranks(tmp_path):
     assert {os.path.basename(w).replace(".tmp", "") for w in r0["runs"][0]["writes"]} == files
     for root in ("straight", "resumed"):
         assert {p.name for p in (tmp_path / root / "run").iterdir()} == files
-    timed = ("episodes_per_sec",)  # each rank's own clock
+    timed = ("episodes_per_sec", "step_ms")  # each rank's own clock
     for a, b in zip(r0["runs"], r1["runs"]):  # the same epochs, the same metrics: they stopped together
         assert [{k: v for k, v in h.items() if k not in timed} for h in a["history"]] == \
             [{k: v for k, v in h.items() if k not in timed} for h in b["history"]]
