@@ -63,6 +63,14 @@ class MetaAudioDataset:
                     self.labels.append(self.class_to_label[name])
         self.mean, self.std = self.get_normalization_stats()
 
+    def _file_bytes(self, probes=None) -> int:
+        """The files' total size on disk, from ``probes`` (the split's
+        ``native_pack.probe_files``, made here when None)."""
+        nbytes = (native_pack.probe_files(self.filepaths) if probes is None else probes)[2]
+        if (nbytes < 0).any():
+            raise FileNotFoundError(f"{self.filepaths[int(np.argmax(nbytes < 0))]} does not open")
+        return int(nbytes.sum())
+
     def get_normalization_stats(self) -> Tuple[float, float]:
         norm_stats = np.load(self.root / "norm_stats" / "glob_norm.npy")
         return float(np.ravel(norm_stats[0])[0]), float(np.ravel(norm_stats[1])[0])
@@ -82,30 +90,32 @@ class MetaAudioDataset:
         # NSynth's notes are 4 s, every other dataset's window 5 s
         return 4 if "nsynth" in self.experiment_config.dataset_name.lower() else 5
 
-    def estimated_packed_bytes(self, dtype="float32") -> int:
+    def estimated_packed_bytes(self, dtype="float32", probes=None) -> int:
         """The packed split's size from the files' sizes (spec files are
-        float32, scaled to the store's dtype; wav stores are float32)."""
+        float32, scaled to the store's dtype; wav stores are float32).
+        ``probes``: the split's ``native_pack.probe_files``, made here when
+        None."""
         itemsize = 4 if self.input_type == "wav" else resolve_store_dtype(dtype).itemsize
-        return int(sum(p.stat().st_size for p in self.filepaths) * itemsize / 4)
+        return int(self._file_bytes(probes) * itemsize / 4)
 
-    def estimated_samples(self) -> int:
+    def estimated_samples(self, probes=None) -> int:
         """An upper bound on a wav split's sample count from the files'
         sizes (float32 samples plus their headers)."""
-        return sum(p.stat().st_size for p in self.filepaths) // 4
+        return self._file_bytes(probes) // 4
 
-    def _pack_spec_native(self, dtype: torch.dtype):
+    def _pack_spec_native(self, dtype: torch.dtype, probes=None):
         """``(segments [G, F, T] CPU tensor, seg_counts)`` from the native
         packer, or None when the files are irregular (a header the packer
-        does not take, or feature shapes that differ)."""
+        does not take, or feature shapes that differ). ``probes``: the
+        split's ``native_pack.probe_files``, made here when None."""
         if not self.filepaths:
             return None
-        probes = [native_pack.probe(p) for p in self.filepaths]
-        if any(p is None for p in probes):
+        elems, seg_counts, _ = native_pack.probe_files(self.filepaths) if probes is None else probes
+        if (elems < 0).any():
             return None
         first = np.load(self.filepaths[0], mmap_mode="r", allow_pickle=False)
         f_dim, t_dim = first.shape[-2:] if first.ndim in (2, 3) else (0, 0)
-        seg_counts = np.asarray([p[1] for p in probes], dtype=np.int64)
-        if f_dim * t_dim == 0 or any(p[0] != c * f_dim * t_dim for p, c in zip(probes, seg_counts)):
+        if f_dim * t_dim == 0 or (elems != seg_counts * f_dim * t_dim).any():
             return None
         offsets = np.zeros(len(seg_counts) + 1, dtype=np.int64)
         offsets[1:] = np.cumsum(seg_counts * f_dim * t_dim)
@@ -113,13 +123,13 @@ class MetaAudioDataset:
         native_pack.pack_files_flat(self.filepaths, out, offsets, self.mean, self.std)
         return out, seg_counts
 
-    def _pack_spec(self, dtype) -> Tuple[torch.Tensor, np.ndarray]:
+    def _pack_spec(self, dtype, probes) -> Tuple[torch.Tensor, np.ndarray]:
         """The split's z-scored segments ``[G, F, T]`` in ``dtype`` on the CPU
         and per-item segment counts: native packer, or the same arithmetic
         in numpy (``native_pack.normalize``) for irregular files."""
         dtype = resolve_store_dtype(dtype)
         if dtype in (torch.float32, torch.bfloat16):
-            flat = self._pack_spec_native(dtype)
+            flat = self._pack_spec_native(dtype, probes)
             if flat is not None:
                 return flat
         items = [np.load(p, allow_pickle=True) for p in self.filepaths]
@@ -127,7 +137,8 @@ class MetaAudioDataset:
         segments = np.concatenate(items, axis=0) if items else np.zeros((0, 1, 1), np.float32)
         return torch.from_numpy(segments).to(dtype), np.asarray([x.shape[0] for x in items], np.int64)
 
-    def to_packed_store(self, dtype="float32", device: Union[str, torch.device] = "cuda"):
+    def to_packed_store(self, dtype="float32", device: Union[str, torch.device] = "cuda", probes=None):
+        """The split on ``device``; ``probes`` as for ``_pack_spec_native``."""
         if self.input_type == "wav":
             items = [np.load(p, allow_pickle=True) for p in self.filepaths]
             return PackedWavStore.pack(
@@ -135,21 +146,22 @@ class MetaAudioDataset:
                 std=self.std, multi_segm=self.multi_segm,
                 segment_seconds=self._segment_seconds(), device=device,
             )
-        segments, seg_counts = self._pack_spec(dtype)
+        segments, seg_counts = self._pack_spec(dtype, probes)
         return PackedStore.from_flat_arrays(segments, seg_counts, self.labels, len(self.class_names),
                                             device=device)
 
-    def to_host_store(self, dtype="float32"):
+    def to_host_store(self, dtype="float32", probes=None):
         """The split in host RAM: a ``HostStore`` (spec) or a
         ``WavHostStore`` streamed from the files' headers (wav; ``dtype``
-        ``'bfloat16'`` means float16 there)."""
+        ``'bfloat16'`` means float16 there). ``probes`` as for
+        ``_pack_spec_native``."""
         if self.input_type == "wav":
             return WavHostStore.pack_from_files(
                 self.filepaths, self.labels, n_classes=len(self.class_names), mean=self.mean,
                 std=self.std, multi_segm=self.multi_segm, segment_seconds=self._segment_seconds(),
                 dtype=dtype,
             )
-        segments, seg_counts = self._pack_spec(dtype)
+        segments, seg_counts = self._pack_spec(dtype, probes)
         return HostStore.from_flat_arrays(segments, seg_counts, self.labels, len(self.class_names))
 
 
@@ -172,19 +184,22 @@ def load_packed_split(
     device store; null picks the host store when the packed split (wav
     reckoned in float32) exceeds ``HOST_STORE_MEMORY_FRACTION`` of the
     card's memory, or when a wav split's samples pass the device store's
-    int32 addressing (``MAX_DEVICE_SAMPLES``)."""
+    int32 addressing (``MAX_DEVICE_SAMPLES``). The estimate's file sizes
+    come from the packer's header probe, one native call, which the pack
+    then reuses."""
     device = torch.device(device)
     dtype = exp.tpu.store_dtype if dtype is None else dtype
     ds = MetaAudioDataset(exp, root, split)
-    host = exp.tpu.host_store
+    host, probes = exp.tpu.host_store, None
     if host is None:
+        probes = native_pack.probe_files(ds.filepaths)
         limit = _device_memory_bytes(device)
-        est = ds.estimated_packed_bytes(dtype)
+        est = ds.estimated_packed_bytes(dtype, probes)
         host = limit is not None and est > HOST_STORE_MEMORY_FRACTION * limit
-        host = host or (ds.input_type == "wav" and ds.estimated_samples() >= MAX_DEVICE_SAMPLES)
+        host = host or (ds.input_type == "wav" and ds.estimated_samples(probes) >= MAX_DEVICE_SAMPLES)
     if host:
-        return ds.to_host_store(dtype=dtype)
-    return ds.to_packed_store(dtype=dtype, device=device)
+        return ds.to_host_store(dtype=dtype, probes=probes)
+    return ds.to_packed_store(dtype=dtype, device=device, probes=probes)
 
 
 def make_synthetic_dataset(

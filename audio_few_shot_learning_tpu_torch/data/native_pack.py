@@ -76,8 +76,8 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             i64, f32, p_i64 = ctypes.c_int64, ctypes.c_float, ctypes.POINTER(ctypes.c_int64)
             paths = ctypes.POINTER(ctypes.c_char_p)
-            lib.afsl_npy_probe.restype = i64
-            lib.afsl_npy_probe.argtypes = [ctypes.c_char_p, p_i64]
+            lib.afsl_npy_probe_many.restype = i64
+            lib.afsl_npy_probe_many.argtypes = [paths, i64, p_i64, p_i64, p_i64, ctypes.c_int]
             for entry in (lib.afsl_pack_f32_var, lib.afsl_pack_bf16_var):
                 entry.restype = i64
                 entry.argtypes = [paths, i64, ctypes.c_void_p, p_i64, f32, f32, ctypes.c_int]
@@ -89,9 +89,21 @@ def probe(path) -> Optional[Tuple[int, int]]:
     """(elements, segments) of a .npy file from its header, or None for a
     file the packer does not take (not .npy, not little-endian f4/f8 in C
     order). Segments are the leading dimension of a 3-D file, else 1."""
-    shape0 = ctypes.c_int64(0)
-    elems = get_lib().afsl_npy_probe(str(path).encode(), ctypes.byref(shape0))
-    return None if elems < 0 else (int(elems), int(shape0.value))
+    elems, segments, _ = probe_files([path], threads=1)
+    return None if elems[0] < 0 else (int(elems[0]), int(segments[0]))
+
+
+def probe_files(paths: Sequence, threads: int = DEFAULT_THREADS) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``probe`` of every file in one native call on ``threads`` threads,
+    with each file's size: (elements, segments, bytes), int64 arrays;
+    elements -1 for a file the packer does not take, bytes -1 for one that
+    does not open."""
+    out = [np.empty(len(paths), np.int64) for _ in range(3)]
+    if len(paths):
+        p_i64 = ctypes.POINTER(ctypes.c_int64)
+        get_lib().afsl_npy_probe_many(_path_array(paths), len(paths), *(a.ctypes.data_as(p_i64) for a in out),
+                                      threads)
+    return tuple(out)
 
 
 def _scale(mean: float, std: float) -> Tuple[float, float]:

@@ -1,6 +1,8 @@
 """Profiling: a ``torch.profiler`` trace around a block, the episodes/s
-counter (counterpart of the JAX package's ``utils/profiling.py``), and the
-kernels' launch counts per call of a method (``launches_per_call``).
+counter (counterpart of the JAX package's ``utils/profiling.py``), the
+kernels' launch counts per call of a method (``launches_per_call``), and
+what a measurement script records beside its numbers (``card``, the card's
+name and power limit; ``rss_gb``, the process's peak resident set).
 
 ``profile_trace`` records the host's ops and, for work on the card, its
 kernels and copies, and writes a Chrome trace (``*.pt.trace.json``, which
@@ -15,6 +17,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import resource
+import subprocess
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -87,3 +91,19 @@ def launches_per_call(owner, name: str, out: List[List[int]]):
         yield out
     finally:
         setattr(owner, name, fn)
+
+
+def card() -> dict:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    try:
+        line = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=30, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return {"nvidia_smi": None, "error": str(e)}
+    return {"nvidia_smi": line.splitlines()[0] if line else line}
+
+
+def rss_gb() -> float:
+    """Peak resident set of this process so far, GB (``ru_maxrss`` is KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6

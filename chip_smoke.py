@@ -10,7 +10,9 @@ Imports nothing of JAX or of the JAX package. In order it:
    csrc/`` with ``nvcc`` (one process per source, all at once) into
    ``build/torch_kernels/``, and prints their registers and spills;
 3. kernel phase: times the launch floor (one trivial kernel), then holds K1
-   (SpecAugment 4-view emitter), K2 (episode head, at the spec and wav eval
+   (SpecAugment 4-view emitter, at the flagship's eval batch and at
+   NSynth's 128x126 for a train step, E=1, and an eval batch, E=16, in
+   float32 and bf16), K2 (episode head, at the spec and wav eval
    batches, a predict episode, a ragged case and the classifier API's
    support and query encodes, on inputs as the path gives them, asserting
    that one call runs K2 and nothing else on the device) and
@@ -209,7 +211,19 @@ Imports nothing of JAX or of the JAX package. In order it:
    ``result_run0.json`` of both and ``summary.json`` with the JAX script's
    keys and the port's, launches per train step and eval batch K1 2, K2 1,
    K3 0, the test run on the weights of the run's ``model.ckpt`` (the
-   best-model reload), test accuracy above 0.4.
+   best-model reload), test accuracy above 0.4;
+31. the two dataset-scale drivers at reduced depth, after the full
+   protocol, in a directory under ``build/``:
+   ``scripts/torch_port_nsynth_scale.py`` in-process at NSynth's 1 006
+   classes and 128x126 over 40 000 items (``long_tail_counts`` needs 20 a
+   class: at least 20 120) and ``scripts/torch_port_wav_scale.py`` at
+   BirdClef's config over 3 000 items at ``--scale`` 1.0 (2.7 GB, s_max 36:
+   ``--scale`` shortens the clips and not the 5-s segments, so 0.1 would
+   stop at s_max 4), with each driver's assertions (launches per train
+   step and per eval batch K1 2 / K2 1 / K3 0 on both NSynth placements and
+   K1 0 / K2 1 / K3 1 on the wav run, a finite loss, accuracies in [0, 1],
+   host mode on the wav store) and ``sampling_flat``, the placements'
+   store classes and s_max 36 held here.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -238,6 +252,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 N_MELS, N_FRAMES, N_BINS = 128, 157, 513
+NSYNTH_FRAMES = 126  # NSynth's 4-s notes
 SR, CLIP = 16000, 80000  # 5-s clips: 1 + 80000 // 512 = 157 frames
 N_WAY, K_SHOT, K_QUERY = 5, 5, 5
 EVAL_BATCH = 16
@@ -424,29 +439,34 @@ def kernel_phase(dev):
     params = SpecAugParams(use=True, mask_param=16, W=22, num_mask=1, mask_value=0.0, p=0.282)
     rows = {"launch_floor_ms": launch_floor_ms(dev)}
 
-    # K1: one launch per view call; the eval batch makes E=16 episodes x 25 items
+    # K1: one launch per view call; the eval batch makes E=16 episodes x 25
+    # items. Then NSynth's 4-s notes (128x126, configs/nsynth_cpl.json's
+    # SpecAugment) at a train step's E=1 and an eval batch's E=16, as the
+    # dataset-scale phase runs them.
+    with open(os.path.join(REPO, "configs", "nsynth_cpl.json")) as f:
+        nsynth = SpecAugParams.from_dict(json.load(f)["specaug_params"])
     k1 = []
-    for dtype in (torch.float32, torch.bfloat16):
-        spec = torch.randn(
-            (EVAL_BATCH, N_WAY * K_SHOT, N_MELS, N_FRAMES), generator=gen, device=dev
-        ).to(dtype)
-        ys, tm, fm = specaugment.draw_views_params(
-            gen, params, EVAL_BATCH, N_WAY * K_SHOT, N_MELS, N_FRAMES, dev
-        )
-        args = (spec, ys, tm, fm, params.mask_value)
-        out = specaugment.views_cuda(*args)
-        ref = specaugment.views_reference(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # bf16: at most one bf16 rounding step (2^-8 relative) at the largest value
-        tol = K1_TOL_F32 if dtype == torch.float32 else 2.0**-8 * spec.float().abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"K1 {dtype} disagrees with its plain version: {err} > {tol}")
-        ms = graph_ms(lambda: specaugment.views_cuda(*args))
-        plain = graph_ms(lambda: specaugment.views_reference(*args))
-        b_ms, b_by = bound_ms(nbytes(spec, ys, tm, fm) + nbytes(out), 3 * out.numel() / 4)
-        k1.append(dict(dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tolerance=tol,
-                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
+    for case, e, frames, prm in (("flagship eval batch", EVAL_BATCH, N_FRAMES, params),
+                                 ("nsynth train step", 1, NSYNTH_FRAMES, nsynth),
+                                 ("nsynth eval batch", EVAL_BATCH, NSYNTH_FRAMES, nsynth)):
+        for dtype in (torch.float32, torch.bfloat16):
+            spec = torch.randn((e, N_WAY * K_SHOT, N_MELS, frames), generator=gen, device=dev).to(dtype)
+            ys, tm, fm = specaugment.draw_views_params(gen, prm, e, N_WAY * K_SHOT, N_MELS, frames, dev)
+            args = (spec, ys, tm, fm, prm.mask_value)
+            out = specaugment.views_cuda(*args)
+            ref = specaugment.views_reference(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            # bf16: at most one bf16 rounding step (2^-8 relative) at the largest value
+            tol = K1_TOL_F32 if dtype == torch.float32 else 2.0**-8 * spec.float().abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"K1 {case} {dtype} at {list(spec.shape)} disagrees with its plain "
+                                     f"version: {err} > {tol}")
+            ms = graph_ms(lambda: specaugment.views_cuda(*args))
+            plain = graph_ms(lambda: specaugment.views_reference(*args))
+            b_ms, b_by = bound_ms(nbytes(spec, ys, tm, fm) + nbytes(out), 3 * out.numel() / 4)
+            k1.append(dict(case=case, shape=list(spec.shape), dtype=str(dtype).replace("torch.", ""),
+                           max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
     rows["K1"] = k1
 
     # K2: one launch per eval batch, on the inputs as the path gives them:
@@ -1539,6 +1559,60 @@ def full_protocol_phase():
                                              "step_ms_first_epochs_median", "step_ms_last_epochs_median",
                                              "train_eps_per_sec", "val_curve")})
     return out
+
+
+SCALE_NSYNTH_ITEMS = 40_000
+SCALE_WAV_ITEMS = 3_000
+
+
+def scale_drivers_phase():
+    """The two dataset-scale drivers in-process at reduced depth (item 31 of
+    the module's list), in a directory under ``build/``; each raises on its
+    own checks, and this phase holds what their lines report."""
+    nsynth_driver = load_script("torch_port_nsynth_scale")
+    wav_driver = load_script("torch_port_wav_scale")
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp, contextlib.redirect_stdout(io.StringIO()):
+        nsynth = nsynth_driver.main(["--root", os.path.join(tmp, "nsynth_scale"),
+                                     "--items", str(SCALE_NSYNTH_ITEMS)])
+    nsynth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        wav = wav_driver.main(["--items", str(SCALE_WAV_ITEMS)])
+    wav_s = time.perf_counter() - t0
+    arms = nsynth["train"]
+    if not nsynth["sampling_flat"] or (nsynth["classes"], nsynth["feat_shape"]) != (1006, [128, 126]):
+        raise AssertionError(f"NSynth scale: sampling_flat {nsynth['sampling_flat']}, {nsynth['classes']} classes "
+                             f"at {nsynth['feat_shape']}")
+    if [arms[k]["store"] for k in ("host_store_null", "host_store_true")] != ["PackedStore", "HostStore"]:
+        raise AssertionError(f"NSynth scale: the placements loaded as {[a['store'] for a in arms.values()]}")
+    want = launches_key(SPEC_LAUNCHES)
+    for name, arm in arms.items():
+        if arm["launches_per_train_step"] != {want: nsynth_driver.TRAIN_TASKS} or \
+                set(arm["launches_per_eval_batch"]) != {want}:
+            raise AssertionError(f"NSynth scale, {name}: launches per train step {arm['launches_per_train_step']}, "
+                                 f"per eval batch {arm['launches_per_eval_batch']}")
+    want = launches_key(WAV_LAUNCHES)
+    if wav["s_max"] != 36 or wav["store"] != "WavHostStore" or set(wav["launches_per_train_step"]) != {want} or \
+            set(wav["launches_per_eval_batch"]) != {want} or not (wav["loss_finite"] and wav["eval_acc_sane"]):
+        raise AssertionError(f"wav scale: {wav}")
+    keep = ("load_seconds", "store", "train_ms_per_step_median", "eval_eps_per_sec", "test_accuracy",
+            "launches_per_train_step", "launches_per_eval_batch", "peak_memory_allocated_gb")
+    return dict(
+        nsynth_seconds=nsynth_s, wav_seconds=wav_s,
+        nsynth={k: nsynth[k] for k in ("items", "gen_seconds", "pack_seconds", "probe_seconds",
+                                       "store_gb", "class_table_m_max",
+                                       "class_table_skew", "sample_ms_per_8ep_306k", "sample_ms_per_8ep_small",
+                                       "host_sample_ms_per_8ep_306k", "sampling_flat", "peak_rss_gb_run")},
+        nsynth_arms={name: {k: arm[k] for k in keep} for name, arm in arms.items()},
+        wav={k: wav[k] for k in ("items", "store_gb", "s_max", "pack_seconds", "train_eps_per_sec",
+                                 "train_ms_per_step_median", "raw_floor_eps_per_sec", "eval_smax_tasks_per_sec",
+                                 "eval_batch", "launches_per_train_step", "launches_per_eval_batch",
+                                 "train_peak_memory_allocated_gb", "eval_peak_memory_allocated_gb",
+                                 "staging_bytes_per_step", "peak_rss_gb")},
+    )
 
 
 DP_PARAM_LR = 8.0  # 4 Adam steps, each ~lr * sign(g): a flipped sign moves a parameter 2 lr a step
@@ -2773,9 +2847,9 @@ def native_pack_phase():
         ds = MetaAudioDataset(ExperimentConfig.from_dict({"device": "cpu"}), root, "train")
         files, gb = len(ds.filepaths), sum(p.stat().st_size for p in ds.filepaths) / 1e9
         t0 = time.perf_counter()
-        probes = [native_pack.probe(p) for p in ds.filepaths]  # the loader's per-file header check
+        elems, _, _ = native_pack.probe_files(ds.filepaths)  # the loader's header check, one call for the split
         out["probe_s"] = time.perf_counter() - t0
-        if any(p is None for p in probes):
+        if (elems < 0).any():
             raise AssertionError("the packer's probe refused a regular file")
         for dtype, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
             t0 = time.perf_counter()
@@ -2998,6 +3072,8 @@ def main() -> int:
     protocol = full_protocol_phase()
     print(f"full protocol, cut to {PROTOCOL_EPOCHS} epochs x {PROTOCOL_TASKS} tasks ({card}): "
           + json.dumps(protocol), flush=True)
+    scale = scale_drivers_phase()
+    print(f"dataset-scale drivers, reduced depth ({card}): " + json.dumps(scale), flush=True)
     entry = entry_points_phase(dev)
     for name, row in entry.items():
         print(f"entry points, {name} ({card}): " + json.dumps(row), flush=True)
@@ -3011,7 +3087,7 @@ def main() -> int:
              source="audio_few_shot_learning_tpu_torch/csrc/specaugment.cu",
              replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
              path=slc, library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
-             extra=dict(bf16=kern["K1"][1], in_train_us=train["profile"]["k1_us_per_launch"],
+             extra=dict(bf16=kern["K1"][1], nsynth_cases=kern["K1"][2:], in_train_us=train["profile"]["k1_us_per_launch"],
                         **multiseg_launches(0, ms_flag, s36, None), multiseg_cases=kern_ms["K1"],
                         launches_per_wavaug_eval_batch=wa["eval_launches_per_batch"][0])),
         dict(name="episode_scores",
@@ -3078,6 +3154,12 @@ def main() -> int:
             launches_per_protocol_eval_batch=per_call(protocol["single_segment"]["launches_per_eval_batch"], i),
             launches_per_parity_train_step={f"{c['dataset']}_{c['loss']}": per_call(c["launches_per_train_step"], i)
                                             for c in parity["cells"]},
+            launches_per_nsynth_scale_train_step={name: per_call(arm["launches_per_train_step"], i)
+                                                  for name, arm in scale["nsynth_arms"].items()},
+            launches_per_nsynth_scale_eval_batch={name: per_call(arm["launches_per_eval_batch"], i)
+                                                  for name, arm in scale["nsynth_arms"].items()},
+            launches_per_wav_scale_train_step=per_call(scale["wav"]["launches_per_train_step"], i),
+            launches_per_wav_scale_eval_batch=per_call(scale["wav"]["launches_per_eval_batch"], i),
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

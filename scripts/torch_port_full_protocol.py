@@ -43,7 +43,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -53,6 +52,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
+
+from audio_few_shot_learning_tpu_torch.utils.profiling import card  # noqa: E402
 
 N_MELS, N_FRAMES = 128, 157
 EXPERIMENT_CONFIG = REPO / "configs" / "esc50_cpl.json"
@@ -119,15 +120,6 @@ def make_data(band_gain: float, mseg: bool, data_root: str) -> str:
     )
     return root
 
-
-def card() -> dict:
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    try:
-        line = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                              capture_output=True, text=True, timeout=30, check=True).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as e:
-        return {"nvidia_smi": None, "error": str(e)}
-    return {"nvidia_smi": line.splitlines()[0] if line else line}
 
 
 def run_summary(rows: list, result: dict) -> dict:

@@ -55,6 +55,53 @@ def test_probe_matches_jax(tmp_path, ndim, jax_native_packer):
         assert native_pack.probe(tmp_path / f"{name}.npy") is None
 
 
+def test_probe_files_is_one_native_call(tmp_path, monkeypatch):
+    """``probe_files`` gives ``probe``'s answer and the size on disk of every
+    file from one native call on the packer's threads, and loading a split
+    under ``tpu.host_store: null`` probes it once, for the placement rule's
+    size estimate and for the pack: at NSynth's 306 000 files one Python
+    ``probe`` call per file, and before it one ``stat`` per file for the
+    estimate, were most of the load's time."""
+    import os
+
+    from audio_few_shot_learning_tpu_torch.data import datasets
+
+    rng = np.random.default_rng(2)
+    shapes = [(8, 5), (3, 8, 5), (1, 8, 5), (8, 5), (77,)]
+    paths, _ = _files(tmp_path, shapes, rng)
+    np.save(tmp_path / "i.npy", np.zeros((8, 5), np.int32))
+    (tmp_path / "x.npy").write_bytes(b"not an npy")
+    paths += [str(tmp_path / "i.npy"), str(tmp_path / "x.npy"), str(tmp_path / "missing.npy")]
+    want = [(int(np.prod(s)), s[0] if len(s) == 3 else 1) for s in shapes] + [None] * 3
+    assert [native_pack.probe(p) for p in paths] == want
+    sizes = [os.path.getsize(p) if os.path.exists(p) else -1 for p in paths]
+    for threads in (1, 3):
+        elems, segs, nbytes = native_pack.probe_files(paths, threads=threads)
+        assert elems.dtype == segs.dtype == nbytes.dtype == np.int64
+        assert [None if e < 0 else (int(e), int(s)) for e, s in zip(elems, segs)] == want
+        assert nbytes.tolist() == sizes
+    assert [a.shape for a in native_pack.probe_files([])] == [(0,), (0,), (0,)]
+
+    root = _dataset(tmp_path, multi_segm=True, max_segments=3)
+    exp = tcfg.ExperimentConfig.from_dict({"multi_segm": True, "device": "cpu"})
+    ds = MetaAudioDataset(exp, root, "train")
+    want = ds.to_host_store("float32").segments
+    est = sum(os.path.getsize(p) for p in ds.filepaths)
+    assert MetaAudioDataset(exp, root, "train").estimated_packed_bytes("float32") == est
+    probe_files, calls = native_pack.probe_files, []
+    monkeypatch.setattr(native_pack, "probe_files", lambda paths: calls.append(len(paths)) or probe_files(paths))
+    monkeypatch.setattr(native_pack, "probe", lambda path: pytest.fail("a per-file probe call"))
+    files, stats, stat = set(ds.filepaths), [], type(ds.filepaths[0]).stat
+    monkeypatch.setattr(type(ds.filepaths[0]), "stat",
+                        lambda self, **kw: (self in files and stats.append(self)) or stat(self, **kw))
+    monkeypatch.setattr(datasets, "_device_memory_bytes", lambda device: 10 * est)  # routed by size: the card
+    store = datasets.load_packed_split(exp, root, "train", "cpu")
+    monkeypatch.undo()
+    torch.testing.assert_close(store.segments, want, atol=0, rtol=0)
+    assert calls == [len(ds)]
+    assert stats == ds.filepaths[:1]  # np.load's mmap of the first file, for the feature shape; no stat per file
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_flat_pack_matches_jax_and_numpy(tmp_path, ndim, dtype, jax_native_packer):

@@ -3,7 +3,9 @@
 ``Trainer.predict_episode`` and one ``evaluate`` batch of the port, with the
 augmentation draws fixed, against the JAX model on the same views and
 weights (equal argmax, scores within 1e-3); the CLI end to end; the rule
-that the port imports nothing of JAX (nor pandas, absent beside the card);
+that the port, ``chip_smoke.py`` and the port's drivers
+(``scripts/torch_port_*.py``) import nothing of JAX (nor pandas, absent
+beside the card);
 and the rule that the engine raises instead of running on the CPU unasked.
 """
 
@@ -144,7 +146,9 @@ def _imports(path):
 
 
 def test_port_imports_nothing_of_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    drivers = sorted((REPO / "scripts").glob("torch_port_*.py"))
+    assert {"torch_port_nsynth_scale.py", "torch_port_wav_scale.py"} <= {p.name for p in drivers}
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + drivers
     assert len(files) > 10
     host_path = {"hoststore.py", "wavhoststore.py", "native_pack.py", "staging.py"}
     assert host_path <= {p.name for p in files if p.parent.name == "data"}
