@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -167,9 +169,82 @@ def views_reference(spec, ys, tmask, fmask, mask_value: float) -> torch.Tensor:
     return torch.stack([spec, warped, tview, fview], dim=2)
 
 
+VIEWS_MAX_THREADS = 256  # csrc/specaugment.cu kMaxThreads
+VIEWS_TILES_PER_SM = 4  # the least tiles a launch leaves each SM, where the shape has them
+SMEM_LIMIT = 227 * 1024  # Hopper: dynamic shared memory one block may take
+ACCESS_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewsPlan:
+    """K1's launch: one block of ``threads`` per tile of ``rows`` spectrogram
+    rows of one item (``tiles_per_item`` tiles an item, ``blocks`` in all),
+    each thread moving ``vec`` elements per access (16 bytes on the vector
+    path, 1 on the scalar one), ``smem_bytes`` of shared memory a block."""
+
+    vec: int
+    rows: int
+    tiles_per_item: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def _padded(nbytes: int) -> int:
+    """A shared buffer with one 4-byte word after every 128 bytes (and one
+    spare): ``csrc/specaugment.cu`` padded_bytes."""
+    return nbytes + 4 * (nbytes // 128 + 1)
+
+
+def views_smem_bytes(rows: int, t_len: int, elem_bytes: int) -> int:
+    """Shared memory of one K1 block: the item's ys row (f32), then from the
+    next 16-byte boundary the tile of ``rows`` x T elements, both padded."""
+    return cuda_build.round_up(_padded(4 * t_len), ACCESS_BYTES) + _padded(rows * t_len * elem_bytes)
+
+
+@functools.lru_cache(maxsize=256)  # once per shape: the wrapper plans every call on the host's path
+def views_plan(
+    n_episodes: int, n_items: int, f_len: int, t_len: int, elem_bytes: int, sm_count: int, aligned: bool = True
+) -> ViewsPlan:
+    """The vector path (16-byte accesses) where every span starts on a
+    16-byte boundary: ``aligned`` bases, a plane of whole 16-byte units and
+    tiles of a row count whose span is whole 16-byte units; else one
+    element per access. Of the row counts whose tile fits ``SMEM_LIMIT``
+    and one access per thread (``VIEWS_MAX_THREADS``), the most that still
+    leave ``VIEWS_TILES_PER_SM`` tiles per SM, or the fewest when none does.
+    Raises ValueError when not even one row fits shared memory."""
+    plane = f_len * t_len * elem_bytes
+    vec = ACCESS_BYTES // elem_bytes if aligned and plane % ACCESS_BYTES == 0 else 1
+    step = ACCESS_BYTES // math.gcd(t_len * elem_bytes, ACCESS_BYTES) if vec > 1 else 1
+    counts = list(range(step, f_len + 1, step)) or [f_len]  # step > F: one tile an item
+    fits = [r for r in counts if views_smem_bytes(r, t_len, elem_bytes) <= SMEM_LIMIT]
+    if not fits:
+        need = views_smem_bytes(counts[0], t_len, elem_bytes)
+        raise ValueError(f"T={t_len} needs {need} B of shared memory per block; K1 takes at most {SMEM_LIMIT} B")
+    one_each = [r for r in fits if cuda_build.cdiv(r * t_len, vec) <= VIEWS_MAX_THREADS] or fits[:1]
+    items = n_episodes * n_items
+    filled = [r for r in one_each if items * cuda_build.cdiv(f_len, r) >= VIEWS_TILES_PER_SM * sm_count]
+    rows = max(filled) if filled else one_each[0]
+    tiles = cuda_build.cdiv(f_len, rows)
+    threads = min(cuda_build.round_up(cuda_build.cdiv(rows * t_len, vec), 32), VIEWS_MAX_THREADS)
+    return ViewsPlan(vec=vec, rows=rows, tiles_per_item=tiles, blocks=items * tiles, threads=threads,
+                     smem_bytes=views_smem_bytes(rows, t_len, elem_bytes))
+
+
+def _mask_bytes(mask: torch.Tensor, name: str) -> torch.Tensor:
+    """A bool mask as the kernel reads it: the same bytes as ``uint8``, a
+    view (no copy, no device op). Raises on what the kernel does not take."""
+    if mask.dtype != torch.bool or not mask.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous bool tensor, got {mask.dtype} with strides {mask.stride()}")
+    return mask.view(torch.uint8)
+
+
 def views_cuda(spec, ys, tmask, fmask, mask_value: float) -> torch.Tensor:
-    """Launch K1 on CUDA tensors (same contract as ``views_reference``);
-    counts the launch in ``views_cuda.launches``."""
+    """Launch K1 on CUDA tensors (same contract as ``views_reference``):
+    spec ``[E, B, F, T]`` float32 or bfloat16, ys ``[E, B, T]`` float32,
+    bool tmask ``[E, T]`` and fmask ``[E, F]``, all contiguous; the call
+    runs K1 and no other device op. Counts the launch in
+    ``views_cuda.launches``."""
     if spec.dim() != 4:
         raise ValueError(f"spec must be [E, B, F, T], got {tuple(spec.shape)}")
     e, b, f_len, t_len = spec.shape
@@ -180,24 +255,30 @@ def views_cuda(spec, ys, tmask, fmask, mask_value: float) -> torch.Tensor:
             f"draws do not match spec {tuple(spec.shape)}: ys {tuple(ys.shape)}, "
             f"tmask {tuple(tmask.shape)}, fmask {tuple(fmask.shape)}"
         )
-    if not all(t.is_cuda for t in (spec, ys, tmask, fmask)):
-        raise ValueError("views_cuda needs CUDA tensors")
+    if not all(t.is_cuda and t.device == spec.device for t in (spec, ys, tmask, fmask)):
+        raise ValueError("views_cuda needs CUDA tensors on one device")
     entry = {torch.float32: "afsl_specaugment_views_f32", torch.bfloat16: "afsl_specaugment_views_bf16"}
     if spec.dtype not in entry:
         raise TypeError(f"SpecAugment kernel takes float32 or bfloat16 specs, got {spec.dtype}")
-    x = spec.contiguous()
-    y = ys.to(torch.float32).contiguous()
-    tm = tmask.to(torch.uint8).contiguous()
-    fm = fmask.to(torch.uint8).contiguous()
+    if ys.dtype != torch.float32:
+        raise TypeError(f"SpecAugment kernel takes float32 warp positions, got {ys.dtype}")
+    if not (spec.is_contiguous() and ys.is_contiguous()):
+        raise ValueError("SpecAugment kernel takes a contiguous spec and ys")
+    tm, fm = _mask_bytes(tmask, "tmask"), _mask_bytes(fmask, "fmask")
     out = torch.empty((e, b, NUM_VIEWS, f_len, t_len), device=spec.device, dtype=spec.dtype)
+    if out.numel() == 0:
+        return out
+    sm_count = torch.cuda.get_device_properties(spec.device).multi_processor_count
+    plan = views_plan(e, b, f_len, t_len, spec.element_size(), sm_count, spec.data_ptr() % ACCESS_BYTES == 0)
     fn = cuda_build.function(
         "specaugment",
         entry[spec.dtype],
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
     status = fn(
-        cuda_build.ptr(x), cuda_build.ptr(y), cuda_build.ptr(tm), cuda_build.ptr(fm),
+        cuda_build.ptr(spec), cuda_build.ptr(ys), cuda_build.ptr(tm), cuda_build.ptr(fm),
         cuda_build.ptr(out), e, b, f_len, t_len, float(mask_value),
+        plan.rows, plan.tiles_per_item, plan.threads, plan.vec, plan.smem_bytes,
         cuda_build.stream_handle(spec.device),
     )
     cuda_build.check_launch(status, "SpecAugment kernel")

@@ -10,10 +10,11 @@ Imports nothing of JAX or of the JAX package. In order it:
    csrc/`` with ``nvcc`` (one process per source, all at once) into
    ``build/torch_kernels/``, and prints their registers and spills;
 3. kernel phase: times the launch floor (one trivial kernel), then holds K1
-   (SpecAugment 4-view emitter, at the flagship's eval batch and at
-   NSynth's 128x126 for a train step, E=1, and an eval batch, E=16, in
-   float32 and bf16), K2 (episode head, at the spec and wav eval
-   batches, a predict episode, a ragged case and the classifier API's
+   (SpecAugment 4-view emitter, at the flagship's eval batch, E=16, and
+   train step, E=1, and at NSynth's 128x126 for a train step and an eval
+   batch, in float32 and bf16, equal to the bit, asserting that one call
+   runs K1 and nothing else on the device), K2 (episode head, at the spec
+   and wav eval batches, a predict episode, a ragged case and the classifier API's
    support and query encodes, on inputs as the path gives them, asserting
    that one call runs K2 and nothing else on the device) and
    K3 (mel filterbank + log, both flavours, at the wav eval batch, a predict
@@ -55,7 +56,8 @@ Imports nothing of JAX or of the JAX package. In order it:
    launches per step must be K1 2, K2 1, K3 0; prints episodes/s and ms per
    step (median over the second epoch's steps, CUDA events), peak memory,
    the profiler's busy share and top ops over 4 more steps, and the losses,
-   which must be finite;
+   which must be finite; then K1's time per launch as the profiler saw it
+   in the eval and train passes beside its graph-replay times;
 11. accumulation phase: ``episode_batch: 8, episode_microbatch: 4`` (remat
    on), 3 steps: launches per step K1 2 x 2, K2 1 x 2, and every BatchNorm's
    ``num_batches_tracked`` moved once per chunk (not twice through the
@@ -69,8 +71,8 @@ Imports nothing of JAX or of the JAX package. In order it:
    the Adam step compared;
 14. multi-segment kernel cases, run after the phases 15-17 at the eval
    batch E each of them took: K1 on the flagship's queries at s_max 6 and
-   36 ([E, 150 | 900, 128, 157]), K2 at 150 and 900 query rows (flagship
-   D 256, wav and plain D 64), K3 at the wav multi-segment eval batch
+   36 ([E, 150 | 900, 128, 157]; bit-equal, one device op a call), K2 at
+   150 and 900 query rows (flagship D 256, wav and plain D 64), K3 at the wav multi-segment eval batch
    (M = E x 25 x 7 x 157) and a 36-segment file, each against its plain
    version and timed as in 3;
 15. multi-segment spec phases, ``configs/birdclef_{cpl,plain}.json`` as
@@ -273,7 +275,7 @@ TRAIN_GRAD_REL = 1e-3  # of each tensor's largest |g|
 # weight's largest |g|
 BN_BIAS_NOISE = 1e-2
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
-K1_TOL_F32 = 1e-5  # same separately rounded f32 ops as the plain version
+K1_TOL = 0.0  # the same separately rounded f32 ops as the plain version, in f32 and bf16
 K2_ATOL, K2_RTOL = 1e-4, 1e-5  # another summation order than the plain matmul
 K3_ATOL_DB = 1e-3  # the same f32 products summed in another order, then log10
 SLICE_ATOL, SLICE_ARGMAX_AGREE = 1e-3, 0.99
@@ -404,6 +406,43 @@ def device_kernels(fn, attempts: int = 3) -> list:
     return names
 
 
+def graph_device_ops(fn) -> list:
+    """The device ops one call of ``fn`` puts on the stream, read off a CUDA
+    graph captured from it: each node's type from the driver ("kernel",
+    "memcpy", "memset", ...). A view of the call that does not depend on
+    the profiler's trace."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+
+    def ok(status, what):
+        if status != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {status}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    out = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        out.append(kinds.get(kind.value, f"type {kind.value}"))
+    return out
+
+
 def episode_to_cpu(ep):
     return type(ep)(**{f.name: None if getattr(ep, f.name) is None else getattr(ep, f.name).cpu()
                        for f in dataclasses.fields(ep)})
@@ -427,6 +466,46 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k1_case(case, args, **extra):
+    """K1 on ``args`` against its plain version (equal to the bit, in f32
+    and bf16: the same separately rounded ops), asserting that one call runs
+    K1 and nothing else on the device (the masks reach it as views of the
+    bool tensors), then timed as the other kernels are."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.ops import specaugment
+
+    spec = args[0]
+    out = specaugment.views_cuda(*args)
+    ref = specaugment.views_reference(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if err != K1_TOL:
+        raise AssertionError(f"K1 {case} {spec.dtype} at {list(spec.shape)} disagrees with its plain version: "
+                             f"max error {err}")
+    b_ms, b_by = bound_ms(nbytes(*args[:4]) + nbytes(out), 3 * out.numel() / 4)
+    del out, ref
+    # both views of one call: the profiler's kernel names (a trace it lost
+    # comes back empty) and the nodes of a graph captured from the call,
+    # during which the wrapper counts its one launch
+    device_ops = device_kernels(lambda: specaugment.views_cuda(*args))
+    before = specaugment.views_cuda.launches
+    graph_ops = graph_device_ops(lambda: specaugment.views_cuda(*args))
+    launched = specaugment.views_cuda.launches - before
+    if (graph_ops != ["kernel"] or launched != 2  # the warm-up call and the captured one
+            or device_ops and (len(device_ops) != 1 or "views_kernel" not in device_ops[0])):
+        raise AssertionError(f"K1 {case} {spec.dtype}: one call ran {device_ops} on the device (profiler), "
+                             f"{graph_ops} (graph nodes), {launched} launches in two calls")
+    plan = specaugment.views_plan(*spec.shape, spec.element_size(),
+                                  torch.cuda.get_device_properties(spec.device).multi_processor_count,
+                                  spec.data_ptr() % 16 == 0)
+    return dict(case=case, shape=list(spec.shape), **extra, max_abs_err=err, tolerance=K1_TOL,
+                device_ops_per_call=device_ops, graph_nodes_per_call=graph_ops, vec=plan.vec, rows=plan.rows, blocks=plan.blocks,
+                ms=graph_ms(lambda: specaugment.views_cuda(*args)),
+                plain_ms=graph_ms(lambda: specaugment.views_reference(*args)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def kernel_phase(dev):
     """The launch floor, then K1, K2 and K3 against their plain versions at
     the main path's shapes."""
@@ -440,33 +519,21 @@ def kernel_phase(dev):
     rows = {"launch_floor_ms": launch_floor_ms(dev)}
 
     # K1: one launch per view call; the eval batch makes E=16 episodes x 25
-    # items. Then NSynth's 4-s notes (128x126, configs/nsynth_cpl.json's
-    # SpecAugment) at a train step's E=1 and an eval batch's E=16, as the
-    # dataset-scale phase runs them.
+    # items, a train step E=1. Then NSynth's 4-s notes (128x126,
+    # configs/nsynth_cpl.json's SpecAugment) at a train step's E=1 and an
+    # eval batch's E=16, as the dataset-scale phase runs them.
     with open(os.path.join(REPO, "configs", "nsynth_cpl.json")) as f:
         nsynth = SpecAugParams.from_dict(json.load(f)["specaug_params"])
     k1 = []
     for case, e, frames, prm in (("flagship eval batch", EVAL_BATCH, N_FRAMES, params),
+                                 ("flagship train step", 1, N_FRAMES, params),
                                  ("nsynth train step", 1, NSYNTH_FRAMES, nsynth),
                                  ("nsynth eval batch", EVAL_BATCH, NSYNTH_FRAMES, nsynth)):
         for dtype in (torch.float32, torch.bfloat16):
             spec = torch.randn((e, N_WAY * K_SHOT, N_MELS, frames), generator=gen, device=dev).to(dtype)
             ys, tm, fm = specaugment.draw_views_params(gen, prm, e, N_WAY * K_SHOT, N_MELS, frames, dev)
             args = (spec, ys, tm, fm, prm.mask_value)
-            out = specaugment.views_cuda(*args)
-            ref = specaugment.views_reference(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            # bf16: at most one bf16 rounding step (2^-8 relative) at the largest value
-            tol = K1_TOL_F32 if dtype == torch.float32 else 2.0**-8 * spec.float().abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"K1 {case} {dtype} at {list(spec.shape)} disagrees with its plain "
-                                     f"version: {err} > {tol}")
-            ms = graph_ms(lambda: specaugment.views_cuda(*args))
-            plain = graph_ms(lambda: specaugment.views_reference(*args))
-            b_ms, b_by = bound_ms(nbytes(spec, ys, tm, fm) + nbytes(out), 3 * out.numel() / 4)
-            k1.append(dict(case=case, shape=list(spec.shape), dtype=str(dtype).replace("torch.", ""),
-                           max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
+            k1.append(k1_case(case, args, dtype=str(dtype).replace("torch.", "")))
     rows["K1"] = k1
 
     # K2: one launch per eval batch, on the inputs as the path gives them:
@@ -2045,19 +2112,10 @@ def multiseg_kernel_cases(dev, e_flag6, e_flag36, e_plain36, e_wav):
         b = N_WAY * K_QUERY * s_max
         spec = torch.randn((e, b, N_MELS, N_FRAMES), generator=gen, device=dev)
         ys, tm, fm = specaugment.draw_views_params(gen, params, e, b, N_MELS, N_FRAMES, dev)
-        args = (spec, ys, tm, fm, params.mask_value)
-        out = specaugment.views_cuda(*args)
-        ref = specaugment.views_reference(*args)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not err <= K1_TOL_F32:
-            raise AssertionError(f"K1 at [{e}, {b}, {N_MELS}, {N_FRAMES}] disagrees with its plain version: {err}")
-        b_ms, b_by = bound_ms(nbytes(spec, ys, tm, fm) + nbytes(out), 3 * out.numel() / 4)
-        k1.append(dict(case=f"flagship queries E={e} s_max {s_max}", shape=list(spec.shape), max_abs_err=err,
-                       tolerance=K1_TOL_F32, ms=graph_ms(lambda: specaugment.views_cuda(*args)),
-                       plain_ms=graph_ms(lambda: specaugment.views_reference(*args)),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        del spec, out, ref, args
+        k1.append(k1_case(f"flagship queries E={e} s_max {s_max}", (spec, ys, tm, fm, params.mask_value),
+                          dtype="float32"))
+        del spec
+        torch.cuda.empty_cache()
     rows["K1"] = k1
 
     k2 = []
@@ -2912,6 +2970,10 @@ def main() -> int:
     print("K2 backward: " + json.dumps(k2_bwd), flush=True)
     train = train_phase(dev, store, train_exp(episode_batch=1), SPEC_LAUNCHES)
     print(f"spec train phase, E=1 ({card}): " + json.dumps(train), flush=True)
+    k1_graph = {f"{r['case']} {r['dtype']}": r["ms"] for r in kern["K1"]}
+    print(f"K1 per launch ({card}): " + json.dumps(dict(
+        graph_replay_ms=k1_graph, k1_us_per_launch_in_eval=slc["eval_profile"]["k1_us_per_launch"],
+        k1_us_per_launch_in_train=train["profile"]["k1_us_per_launch"])), flush=True)
     accum = train_phase(dev, store, train_exp(tasks=24, episode_batch=8, episode_microbatch=4),
                         SPEC_LAUNCHES, epochs=1, profile_steps=2, check_bn=True)
     print(f"spec train phase, E=8 in chunks of 4 with remat ({card}): " + json.dumps(accum), flush=True)
@@ -3087,7 +3149,9 @@ def main() -> int:
              source="audio_few_shot_learning_tpu_torch/csrc/specaugment.cu",
              replaces="audio_few_shot_learning_tpu/ops/specaugment.py:228", row=k1_f32,
              path=slc, library_ms=None, in_eval_us=slc["eval_profile"]["k1_us_per_launch"],
-             extra=dict(bf16=kern["K1"][1], nsynth_cases=kern["K1"][2:], in_train_us=train["profile"]["k1_us_per_launch"],
+             extra=dict(bf16=kern["K1"][1], device_ops_per_call=k1_f32["device_ops_per_call"],
+                        graph_nodes_per_call=k1_f32["graph_nodes_per_call"],
+                        train_step_cases=kern["K1"][2:4], nsynth_cases=kern["K1"][4:], in_train_us=train["profile"]["k1_us_per_launch"],
                         **multiseg_launches(0, ms_flag, s36, None), multiseg_cases=kern_ms["K1"],
                         launches_per_wavaug_eval_batch=wa["eval_launches_per_batch"][0])),
         dict(name="episode_scores",

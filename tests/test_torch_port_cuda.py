@@ -38,15 +38,21 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 # the eval batch's support; multi-segment queries at the E the engine takes
-# on an 80 GB card: 16 episodes at s_max 6, 3 at s_max 36 (flagship)
+# on an 80 GB card: 16 episodes at s_max 6, 3 at s_max 36 (flagship); a
+# train step's single episode at 128x157 and NSynth's 128x126 (f32: 6-row
+# tiles, a partial last one); odd T with F not a multiple of any 16-byte
+# row span (the scalar path)
 @pytest.mark.parametrize("shape", [(16, 25, 128, 157), (16, 150, 128, 157), (3, 900, 128, 157),
-                                   (1, 3, 37, 1000), (2, 1, 1, 31)])
+                                   (1, 3, 37, 1000), (2, 1, 1, 31), (1, 25, 128, 157),
+                                   (1, 25, 128, 126), (2, 7, 37, 157)])
 def test_specaugment_kernel_matches_plain(cuda, dtype, shape):
     e, b, f, t = shape
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = SpecAugParams(use=True, mask_param=16, W=min(22, t // 3), num_mask=2, p=0.282)
     spec = (3 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
     draws = specaugment.draw_views_params(gen, params, e, b, f, t, cuda)
+    plan = specaugment.views_plan(e, b, f, t, spec.element_size(), 132)
+    assert (plan.vec > 1) == ((f * t * spec.element_size()) % 16 == 0)
     before = specaugment.views_cuda.launches
     out = specaugment.views_cuda(spec, *draws, -0.5)
     ref = specaugment.views_reference(spec, *draws, -0.5)
@@ -55,6 +61,64 @@ def test_specaugment_kernel_matches_plain(cuda, dtype, shape):
     assert out.dtype == dtype and out.shape == (e, b, 4, f, t)
     # identical separately rounded arithmetic: equal to the bit
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_specaugment_kernel_matches_plain_from_an_unaligned_base(cuda, dtype):
+    """A contiguous spec whose base is one element past a 16-byte boundary:
+    the plan takes the scalar path at the train step's shape."""
+    shape = (1, 25, 128, 157)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = SpecAugParams(use=True, mask_param=16, W=22, num_mask=2, p=0.282)
+    flat = torch.empty(int(np.prod(shape)) + 1, device=cuda, dtype=dtype)
+    spec = flat[1:].view(shape)
+    spec.copy_(3 * torch.randn(shape, generator=gen, device=cuda))
+    assert spec.data_ptr() % 16 != 0 and spec.is_contiguous()
+    draws = specaugment.draw_views_params(gen, params, *shape, cuda)
+    out = specaugment.views_cuda(spec, *draws, 0.0)
+    ref = specaugment.views_reference(spec, *draws, 0.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_specaugment_kernel_is_one_device_op(cuda, dtype):
+    """One ``views_cuda`` call runs K1 and nothing else on the device: the
+    masks reach it as views of the bool tensors, no conversion kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (1, 25, 128, 157)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = SpecAugParams(use=True, mask_param=16, W=22, num_mask=1, p=0.282)
+    spec = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    draws = specaugment.draw_views_params(gen, params, *shape, cuda)
+    specaugment.views_cuda(spec, *draws, 0.0)  # built, loaded and warm
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):  # a trace with no device activity at all is the profiler's loss
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            specaugment.views_cuda(spec, *draws, 0.0)
+            torch.cuda.synchronize()
+        names = [evt.key for evt in prof.key_averages() for _ in range(evt.count)
+                 if str(evt.device_type).endswith("CUDA")]
+        if names:
+            break
+    assert len(names) == 1 and "views_kernel" in names[0], names
+
+
+def test_specaugment_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = SpecAugParams(use=True, mask_param=4, W=5, num_mask=1, p=0.282)
+    spec = torch.randn((1, 3, 16, 40), generator=gen, device=cuda)
+    ys, tm, fm = specaugment.draw_views_params(gen, params, 1, 3, 16, 40, cuda)
+    with pytest.raises(ValueError, match="bool"):
+        specaugment.views_cuda(spec, ys, tm.to(torch.uint8), fm, 0.0)
+    with pytest.raises(TypeError, match="warp positions"):
+        specaugment.views_cuda(spec, ys.double(), tm, fm, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        specaugment.views_cuda(spec.transpose(-1, -2).contiguous().transpose(-1, -2), ys, tm, fm, 0.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        specaugment.views_cuda(spec.half(), ys, tm, fm, 0.0)
 
 
 @pytest.mark.parametrize("n_way,labels", [

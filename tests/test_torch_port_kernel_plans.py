@@ -1,9 +1,10 @@
-"""PyTorch port: the launch plans of K2 (episode head) and K3 (mel + log),
-computed in Python by their wrappers and checked here on the CPU.
+"""PyTorch port: the launch plans of K1 (SpecAugment views), K2 (episode
+head) and K3 (mel + log), computed in Python by their wrappers and checked
+here on the CPU.
 
 The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``);
-what they are launched with (tiles, stages, shared-memory bytes, bulk-copy
-sizes and offsets, the ragged tail) is plain arithmetic that a wrong edit
+what they are launched with (tiles, vector widths, stages, shared-memory
+bytes, bulk-copy sizes and offsets, the ragged tail) is plain arithmetic that a wrong edit
 would break without a card to show it.
 """
 
@@ -13,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from audio_few_shot_learning_tpu_torch.ops import mel, protohead
+from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
 
 HOPPER_SMS = 132
 SMEM_227K = 227 * 1024
+THREADS_PER_SM = 2048
 
 
 def _old_head_accepts(n_way, s, d):
@@ -158,3 +160,114 @@ def test_mel_plan_refuses_a_tile_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         mel.mel_plan(100, 2000, 128, 1013, HOPPER_SMS)
     mel.mel_plan(100, 1025, 128, 2000, HOPPER_SMS)  # n_fft = 2048 still fits
+
+
+# ----------------------------------------------------------------------------
+# K1
+# ----------------------------------------------------------------------------
+
+# the card tests' shapes and the path's: eval batch, multi-segment queries
+# at s_max 6 and 36, a train step's single episode at 128x157 and NSynth's
+# 128x126 (and its eval batch), the odd and unaligned ones
+K1_SHAPES = [(16, 25, 128, 157), (16, 150, 128, 157), (3, 900, 128, 157), (1, 3, 37, 1000),
+             (2, 1, 1, 31), (1, 25, 128, 157), (1, 25, 128, 126), (16, 25, 128, 126), (2, 7, 37, 157)]
+K1_DTYPES = {"float32": 4, "bfloat16": 2}
+
+
+def _k1_tiles(plan, e, b, f):
+    """(item, first row, rows) of every block, as the kernel derives them
+    from its block index."""
+    blk = np.arange(plan.blocks, dtype=np.int64)
+    item = blk // plan.tiles_per_item
+    f0 = (blk - item * plan.tiles_per_item) * plan.rows
+    return item, f0, np.minimum(plan.rows, f - f0)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_views_plan_tiles_cover_every_row_once(shape, dtype, aligned):
+    e, b, f, t = shape
+    plan = specaugment.views_plan(e, b, f, t, K1_DTYPES[dtype], HOPPER_SMS, aligned)
+    assert plan.blocks == e * b * plan.tiles_per_item
+    item, f0, rows = _k1_tiles(plan, e, b, f)
+    assert (rows >= 1).all()
+    hits = np.zeros((e * b, f), np.int64)
+    for r in range(plan.rows):
+        live = r < rows
+        np.add.at(hits, (item[live], f0[live] + r), 1)
+    assert (hits == 1).all()
+    # every element of a tile is one access of one thread's loop
+    assert (rows * t % plan.vec == 0).all()
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= specaugment.VIEWS_MAX_THREADS
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_views_plan_vector_path_only_on_16_byte_spans(shape, dtype, aligned):
+    e, b, f, t = shape
+    eb = K1_DTYPES[dtype]
+    plan = specaugment.views_plan(e, b, f, t, eb, HOPPER_SMS, aligned)
+    assert plan.vec in (1, 16 // eb)
+    item, f0, rows = _k1_tiles(plan, e, b, f)
+    plane = f * t
+    starts = [item * plane + f0 * t] + [(4 * item + v) * plane + f0 * t for v in range(4)]  # input, 4 views
+    spans_aligned = aligned and all(((s * eb) % 16 == 0).all() for s in starts) and ((rows * t * eb) % 16 == 0).all()
+    if plan.vec > 1:
+        assert spans_aligned
+    # and it is taken wherever the plane is whole 16-byte units (T=157 and 126 at F=128)
+    assert (plan.vec > 1) == (aligned and (plane * eb) % 16 == 0)
+
+
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+def test_views_plan_fills_every_sm_at_a_train_step(dtype):
+    plan = specaugment.views_plan(1, 25, 128, 157, K1_DTYPES[dtype], HOPPER_SMS)
+    assert plan.vec == 16 // K1_DTYPES[dtype]  # the vector path
+    assert plan.blocks >= 3 * HOPPER_SMS  # several tiles on every one of 132 SMs
+    # one access per thread, and the whole grid resident at once
+    assert plan.threads * plan.vec >= plan.rows * 157
+    assert plan.blocks * plan.threads <= HOPPER_SMS * THREADS_PER_SM
+    assert (plan.blocks, plan.rows) == {"float32": (800, 4), "bfloat16": (400, 8)}[dtype]
+
+
+@pytest.mark.parametrize("dtype", K1_DTYPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_views_plan_shared_memory_within_227k(shape, dtype):
+    e, b, f, t = shape
+    eb = K1_DTYPES[dtype]
+    plan = specaugment.views_plan(e, b, f, t, eb, HOPPER_SMS)
+    assert plan.smem_bytes == specaugment.views_smem_bytes(plan.rows, t, eb) <= SMEM_227K
+    # the tile starts 16 bytes aligned after the ys row; each buffer holds one
+    # padding word per 128 bytes
+    ys_bytes = plan.smem_bytes - specaugment._padded(plan.rows * t * eb)
+    assert ys_bytes % 16 == 0 and ys_bytes >= 4 * t + 4 * (4 * t // 128)
+
+
+def test_views_plan_accepts_every_shape_the_48k_kernel_accepted():
+    """The kernel before the plan took any T whose row fit 48 KB of static
+    shared memory."""
+    checked = 0
+    for eb in (4, 2):
+        for t in (1, 2, 31, 157, 1000, 4097, 48 * 1024 // eb):
+            for f in (1, 3, 37, 128):
+                plan = specaugment.views_plan(2, 3, f, t, eb, HOPPER_SMS)
+                assert plan.smem_bytes <= SMEM_227K and 1 <= plan.rows <= f
+                checked += 1
+    assert checked == 56
+
+
+def test_views_plan_refuses_a_row_beyond_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        specaugment.views_plan(1, 1, 4, 40000, 4, HOPPER_SMS)
+
+
+def test_views_masks_pass_as_views_without_a_copy():
+    mask = torch.rand(3, 157) < 0.3
+    view = specaugment._mask_bytes(mask, "tmask")
+    assert view.dtype == torch.uint8 and view.data_ptr() == mask.data_ptr()
+    assert torch.equal(view, mask.to(torch.uint8))
+    with pytest.raises(ValueError, match="bool"):
+        specaugment._mask_bytes(mask.to(torch.uint8), "tmask")
+    with pytest.raises(ValueError, match="bool"):
+        specaugment._mask_bytes(torch.rand(157, 3).t() < 0.3, "tmask")
