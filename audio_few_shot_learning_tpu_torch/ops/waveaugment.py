@@ -522,7 +522,10 @@ class WaveAugment:
     def _steps(self) -> List[_Step]:
         """The static chain (JAX ``apply_once``, ``:512-632``): a transform
         of probability 0 is left out; noise, high-pass and band-stop fuse
-        when two or more are on, or with ``fuse_lowpass``."""
+        when two or more are on, or with ``fuse_lowpass``. A fused low-pass
+        is still drawn at its own place in the chain, so both orders take
+        the same draws from one generator (the pair of arms of
+        ``scripts/torch_port_ab_deviations.py``)."""
         p = self.params.raw
         stats = FEATURE_STATS.get(self.dataset_name, _DEFAULT_STATS)
         centroid = float(stats["avg_centroid"])
@@ -547,10 +550,11 @@ class WaveAugment:
         fft_bytes = lambda l: 40 * l  # noqa: E731  spectrum, mask, product, irfft out (c64/f32)
         steps: List[_Step] = []
 
-        if p_lp > 0 and not fuse_lp:
+        if p_lp > 0:  # fused, the group applies it: drawn here all the same, so both orders draw alike
             steps.append(_Step(
                 lambda g, b, l, dev: {"lowpass": draw_lowpass(g, b, *lp_cut, p_lp, dev)},
-                lambda x, d: lowpass(x, d["lowpass"], sr), fft_bytes))
+                (lambda x, d: x) if fuse_lp else (lambda x, d: lowpass(x, d["lowpass"], sr)),
+                (lambda l: 0) if fuse_lp else fft_bytes))
         p_ps = prob("pitchshift_p", 0.5)
         if p_ps > 0:
             st = (p.get("pitchshift_min_transpose_semitones", -4), p.get("pitchshift_max_transpose_semitones", 4))
@@ -584,8 +588,6 @@ class WaveAugment:
                 out = {}
                 if p_noise > 0:
                     out["noise"] = draw_noise_spectrum(g, b, l, *noise_args, p_noise, dev)
-                if fuse_lp:
-                    out["lowpass"] = draw_lowpass(g, b, *lp_cut, p_lp, dev)
                 if p_hp > 0:
                     out["highpass"] = draw_highpass(g, b, *hp_cut, p_hp, dev)
                 if p_bs > 0:

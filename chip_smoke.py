@@ -225,7 +225,20 @@ Imports nothing of JAX or of the JAX package. In order it:
    step and per eval batch K1 2 / K2 1 / K3 0 on both NSynth placements and
    K1 0 / K2 1 / K3 1 on the wav run, a finite loss, accuracies in [0, 1],
    host mode on the wav store) and ``sampling_flat``, the placements'
-   store classes and s_max 36 held here.
+   store classes and s_max 36 held here;
+32. the JAX repo's last ten drivers at reduced depth, after the
+   dataset-scale drivers, in-process in a directory under ``build/``: the
+   accuracy A/B's "ours" arm (``torch_port_ab_vs_reference.py``, seed 0, 2
+   epochs x 4 tasks, 16 test tasks, band gain 1.2, single and multi-segment,
+   then ``--report``), the calibration at one gain, the three deviation
+   A/Bs (one seed each, full scale), and the seven anatomy and probe
+   drivers (step anatomy at E=1 and E=8 in chunks of 4, 5 steps a stage;
+   the conv stack's six cells and the BatchNorm fold at 5 iterations; the
+   wav path's full and ``-gain`` variants; predict latency; both store
+   dtypes at E=1; the kernel A/B), each driver's own assertions, and the
+   launches of every train step and eval batch they ran held here: K1 2,
+   K2 1, K3 0 (a chunk) on the SpecAugment configs, K1 0, K2 1, K3 1 on
+   the wav configs.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -1682,6 +1695,105 @@ def scale_drivers_phase():
     )
 
 
+DRIVER_DEPTH = ["--epochs", "2", "--tasks", "4", "--test-tasks", "16"]
+ANATOMY_STEPS = "5"
+
+
+def ported_drivers_phase():
+    """Item 32: the ten drivers ported from the JAX repo, in-process at
+    reduced depth; each raises on its own checks, and this phase holds the
+    launches of every train step and eval batch each driver ran to the
+    pattern of its configs (SpecAugment: K1 2, K2 1, K3 0 a chunk; wav:
+    K1 0, K2 1, K3 1)."""
+    from audio_few_shot_learning_tpu_torch.train.engine import Trainer
+    from audio_few_shot_learning_tpu_torch.utils.profiling import launches_per_call, tally_launches
+
+    spec, wav = launches_key(SPEC_LAUNCHES), launches_key(WAV_LAUNCHES)
+    chunked = launches_key([2 * n for n in SPEC_LAUNCHES])  # E=8 in chunks of 4
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        report = os.path.join(tmp, "PARITY_AB_TORCH.md")
+        results = os.path.join(tmp, "ab_results.jsonl")
+        runs = [
+            ("ab_vs_reference", "torch_port_ab_vs_reference", ["--seeds", "0", "--band-gain", "1.2", "--results",
+                                                               results, "--out", report, *DRIVER_DEPTH], {spec}),
+            ("ab_vs_reference_mseg", "torch_port_ab_vs_reference",
+             ["--seeds", "0", "--band-gain", "1.2", "--multiseg", "--results", results, "--out", report,
+              *DRIVER_DEPTH], {spec}),
+            ("ab_report", "torch_port_ab_vs_reference", ["--report", "--results", results, "--out", report], None),
+            ("ab_calibrate", "torch_port_ab_calibrate", ["--gains", "1.2", "--out", report, *DRIVER_DEPTH], {spec}),
+            ("ab_deviations_bn", "torch_port_ab_deviations",
+             ["--seeds", "1", "--experiment", "bn", "--cache", os.path.join(tmp, "cache.jsonl"), "--out", report,
+              *DRIVER_DEPTH], {spec}),
+            ("ab_deviations_pitch", "torch_port_ab_deviations",
+             ["--seeds", "1", "--experiment", "pitch", "--cache", os.path.join(tmp, "cache.jsonl"), "--out", report,
+              *DRIVER_DEPTH], {wav}),
+            ("ab_deviations_lowpass", "torch_port_ab_deviations",
+             ["--seeds", "1", "--experiment", "lowpass", "--cache", os.path.join(tmp, "cache.jsonl"), "--out", report,
+              *DRIVER_DEPTH], {wav}),
+            ("step_anatomy", "torch_port_step_anatomy",
+             ["--steps", ANATOMY_STEPS, "--profile-steps", "2", "--episode-batches", "1", "8"], {spec, chunked}),
+            ("backward_anatomy", "torch_port_backward_anatomy", ["--iters", ANATOMY_STEPS], None),
+            ("bn_fold_eval", "torch_port_bn_fold_eval", ["--iters", ANATOMY_STEPS], None),
+            ("profile_wav_path", "torch_port_profile_wav_path",
+             ["--variants=full,-gain", "--repeats", "1", "--profile-steps", "2"], {wav}),
+            ("predict_latency", "torch_port_predict_latency", ["--calls", ANATOMY_STEPS], None),
+            ("ab_store_dtype", "torch_port_ab_store_dtype", ["--e", "1", "--repeats", "1"], {spec}),
+            ("ab_kernels", "torch_port_ab_kernels", [], None),
+        ]
+        for name, script, argv, want in runs:
+            module = load_script(script)
+            steps, batches = [], []
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), launches_per_call(Trainer, "train_step", steps), \
+                    launches_per_call(Trainer, "_eval_episodes", batches):
+                result = module.main(argv)
+            seconds[name] = time.perf_counter() - t0
+            row = dict(launches_per_train_step=tally_launches(steps), launches_per_eval_batch=tally_launches(batches))
+            if want is not None and (not steps or set(row["launches_per_train_step"]) - want
+                                     or set(row["launches_per_eval_batch"]) - want):
+                raise AssertionError(f"{name}: launches per train step {row['launches_per_train_step']}, per eval "
+                                     f"batch {row['launches_per_eval_batch']}; expected {sorted(want)}")
+            if want is None and (steps or batches):
+                raise AssertionError(f"{name} trained or evaluated: {row}")
+            out[name] = {**row, **driver_summary(name, result)}
+        with open(report) as f:
+            text = f.read()
+    for section in ("ab_vs_reference", "ab_calibrate", "ab_deviations"):
+        if f"<!-- {section}: begin -->" not in text:
+            raise AssertionError(f"the A/B report has no {section} section")
+    return dict(drivers=out, seconds=seconds, total_seconds=sum(seconds.values()))
+
+
+def driver_summary(name: str, result) -> dict:
+    """The figures of a driver's result that the phase prints."""
+    if name.startswith("ab_vs_reference"):
+        return {"test_acc": [r["test_acc"] for r in result], "step_ms_median": [r["step_ms_median"] for r in result]}
+    if name == "ab_calibrate":
+        return {"sweep": result["sweep"]}
+    if name.startswith("ab_deviations"):
+        return {"summary": result["summary"]}
+    if name == "step_anatomy":
+        return {f"E{r['episode_batch']}": {k: [v["wall_ms"], v["device_ms"]] for k, v in r["stages"].items()}
+                for r in result["runs"]}
+    if name == "backward_anatomy":
+        return {f"{c['pool']} {c['norm']}": [c["fwd_ms"], c["fwd_bwd_ms"]] for c in result["cells"]}
+    if name == "bn_fold_eval":
+        return {k: result[k] for k in ("speedup", "max_abs_dev")}
+    if name == "profile_wav_path":
+        return {k: [v["step_ms_median"], v["device_ms"]] for k, v in result["variants"].items()}
+    if name == "predict_latency":
+        return {k: result[k] for k in ("cold_seconds", "warm_median_ms", "bf16_agree", "launches_per_call")}
+    if name == "ab_store_dtype":
+        return {r["store_dtype"]: r["eps"] for r in result["rows"]}
+    if name == "ab_kernels":
+        return {"k1_ms": result["specaugment"]["kernel_ms"], "k2_ms": [r["kernel_ms"] for r in result["protohead"]],
+                "launches": result["kernel_launches"]}
+    return {}
+
+
 DP_PARAM_LR = 8.0  # 4 Adam steps, each ~lr * sign(g): a flipped sign moves a parameter 2 lr a step
 
 
@@ -3136,6 +3248,11 @@ def main() -> int:
           + json.dumps(protocol), flush=True)
     scale = scale_drivers_phase()
     print(f"dataset-scale drivers, reduced depth ({card}): " + json.dumps(scale), flush=True)
+    ported = ported_drivers_phase()
+    for name, row in ported["drivers"].items():
+        print(f"ported driver {name}, reduced depth ({card}): " + json.dumps(row), flush=True)
+    print(f"ported drivers: {len(ported['drivers'])} runs in {ported['total_seconds']:.1f} s: "
+          + json.dumps(ported["seconds"]), flush=True)
     entry = entry_points_phase(dev)
     for name, row in entry.items():
         print(f"entry points, {name} ({card}): " + json.dumps(row), flush=True)
@@ -3224,6 +3341,9 @@ def main() -> int:
                                                   for name, arm in scale["nsynth_arms"].items()},
             launches_per_wav_scale_train_step=per_call(scale["wav"]["launches_per_train_step"], i),
             launches_per_wav_scale_eval_batch=per_call(scale["wav"]["launches_per_eval_batch"], i),
+            launches_per_ported_driver_train_step={name: sorted({per_call({k: 1}, i) for k in row["launches_per_train_step"]})
+                                                   for name, row in ported["drivers"].items()
+                                                   if row["launches_per_train_step"]},
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
