@@ -238,7 +238,18 @@ Imports nothing of JAX or of the JAX package. In order it:
    dtypes at E=1; the kernel A/B), each driver's own assertions, and the
    launches of every train step and eval batch they ran held here: K1 2,
    K2 1, K3 0 (a chunk) on the SpecAugment configs, K1 0, K2 1, K3 1 on
-   the wav configs.
+   the wav configs;
+33. ``scripts/torch_port_bench.py`` (the port's ``bench.py``) in default
+   mode, after the ported drivers: the reference's per-episode loop on the
+   card, the flagship's E=1 train rate, a 128-task eval, the step's FLOP
+   count (on the CPU) and the matmul roof; its one JSON line parsed and
+   printed, ``bench.py``'s headline keys and the port's, ``value`` and
+   ``vs_baseline`` above 0, ``mfu`` and ``fraction_of_matmul_roof`` in
+   (0, 1.05], launches per headline step and eval batch K1 2, K2 1, K3 0,
+   the entry points' TF32 flags back after the baseline's defaults; then
+   the set-up's ``entry`` (``__graft_entry__.entry``'s counterpart, the
+   flagship's eval forward on one episode batch) on the card: finite scores
+   of shape [1, 25, 5].
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -264,6 +275,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_DENSE_FLOPS = 989.4e12  # H100 SXM dense bf16 on the tensor cores: the whole step's mfu
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 N_MELS, N_FRAMES, N_BINS = 128, 157, 513
@@ -1794,6 +1806,49 @@ def driver_summary(name: str, result) -> dict:
     return {}
 
 
+BENCH_HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline", "config", "backend", "device",
+                       "matrix", "launches_per_step", "step_flops"}
+SHARE_CAP = 1.05  # a share of a peak above 1 is a fault of the count or the clock
+
+
+def bench_driver_phase():
+    """Item 33: ``scripts/torch_port_bench.py`` in default mode, in-process;
+    its one line parsed and held (keys, rates, shares, launches per headline
+    step and per eval batch, the TF32 flags it leaves)."""
+    import torch
+
+    module = load_script("torch_port_bench")
+    if module.BF16_DENSE_FLOPS != BF16_DENSE_FLOPS:
+        raise AssertionError(f"the bench driver's bf16 peak {module.BF16_DENSE_FLOPS} is not {BF16_DENSE_FLOPS}")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        (line,) = module.main([])
+    seconds = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != line:
+        raise AssertionError(f"the bench driver printed {len(lines)} lines, not its one JSON line")
+    if set(line) != BENCH_HEADLINE_KEYS or line["backend"] != "cuda":
+        raise AssertionError(f"bench line keys {sorted(line)}, backend {line['backend']}")
+    m = line["matrix"]
+    if not (line["value"] > 0 and line["vs_baseline"] > 0 and m["eval_eps"] > 0):
+        raise AssertionError(f"bench rates: {line['value']}, vs baseline {line['vs_baseline']}, eval {m['eval_eps']}")
+    for share in ("mfu", "fraction_of_matmul_roof"):
+        if not (m[share] is not None and 0 < m[share] <= SHARE_CAP):
+            raise AssertionError(f"bench {share} {m[share]} outside (0, {SHARE_CAP}]")
+    want = launches_key(SPEC_LAUNCHES)
+    for name, tally in (("headline step", line["launches_per_step"]), ("eval batch", m["launches_per_eval_batch"])):
+        if set(tally) != {want}:
+            raise AssertionError(f"bench launches per {name}: {tally}, expected {want}")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the bench driver left TF32 on")
+    fn, args = module.setup.entry("cuda:0")  # __graft_entry__.entry's counterpart
+    scores = fn(*args)
+    if tuple(scores.shape) != (1, N_WAY * K_QUERY, N_WAY) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"entry(): scores {tuple(scores.shape)}, finite {bool(torch.isfinite(scores).all())}")
+    return dict(line=line, seconds=seconds, entry_scores_shape=list(scores.shape))
+
+
 DP_PARAM_LR = 8.0  # 4 Adam steps, each ~lr * sign(g): a flipped sign moves a parameter 2 lr a step
 
 
@@ -3253,6 +3308,9 @@ def main() -> int:
         print(f"ported driver {name}, reduced depth ({card}): " + json.dumps(row), flush=True)
     print(f"ported drivers: {len(ported['drivers'])} runs in {ported['total_seconds']:.1f} s: "
           + json.dumps(ported["seconds"]), flush=True)
+    bench_run = bench_driver_phase()
+    print(f"bench driver, default mode, in {bench_run['seconds']:.1f} s ({card}): " + json.dumps(bench_run["line"]),
+          flush=True)
     entry = entry_points_phase(dev)
     for name, row in entry.items():
         print(f"entry points, {name} ({card}): " + json.dumps(row), flush=True)
@@ -3344,6 +3402,7 @@ def main() -> int:
             launches_per_ported_driver_train_step={name: sorted({per_call({k: 1}, i) for k in row["launches_per_train_step"]})
                                                    for name, row in ported["drivers"].items()
                                                    if row["launches_per_train_step"]},
+            launches_per_bench_headline_step=per_call(bench_run["line"]["launches_per_step"], i),
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
