@@ -31,6 +31,7 @@ import torch
 
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
+from audio_few_shot_learning_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass
@@ -106,6 +107,7 @@ def _all_segments(store: Union[PackedStore, PackedWavStore], items: torch.Tensor
     return rows, real.to(torch.float32)
 
 
+@spanned("afsl.sample")
 def sample_episode(
     gen: torch.Generator,
     store: Union[PackedStore, PackedWavStore],
@@ -186,6 +188,7 @@ def sample_wav_episode(
     if isinstance(store, PackedWavStore):
         return sample_episode(gen, store, n_way, k_support, k_query, batch, is_test)
     if isinstance(store, WavHostStore):
-        return store.sample_episode_batch(gen, n_way, k_support, k_query, is_test, batch)
+        with span("afsl.sample"):
+            return store.sample_episode_batch(gen, n_way, k_support, k_query, is_test, batch)
     raise TypeError(f"sample_wav_episode takes a PackedWavStore or a WavHostStore, not {type(store).__name__}; "
                     "spectrogram stores go through sample_episode")

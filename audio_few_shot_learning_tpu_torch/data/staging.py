@@ -36,6 +36,7 @@ import torch
 
 from audio_few_shot_learning_tpu_torch.data.episodes import EpisodeBatch
 from audio_few_shot_learning_tpu_torch.data.hoststore import HostEpisodes, HostSampler, episode_labels
+from audio_few_shot_learning_tpu_torch.utils.profiling import spanned
 
 
 class _Slot:
@@ -74,6 +75,7 @@ class EpisodeStager:
             self._labels[key] = episode_labels(*key, device=self.device)
         return self._labels[key]
 
+    @spanned("afsl.staging")
     def stage(self, store: HostSampler, p: HostEpisodes) -> EpisodeBatch:
         """``p``'s episodes from ``store`` as an ``EpisodeBatch`` on the
         device, ready for the compute stream. Multi-segment test batches

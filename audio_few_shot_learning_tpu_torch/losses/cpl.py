@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from audio_few_shot_learning_tpu_torch.utils.profiling import spanned
+
 
 def _cosine(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """``a·b / max(|a| |b|, eps)`` along the last axis (``F.cosine_similarity``
@@ -28,6 +30,7 @@ def _cosine(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor
     return dot / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(eps)
 
 
+@spanned("afsl.draws")
 def draw_cpl_gumbel(
     gen: torch.Generator, n_episodes: int, n_queries: int, n_way: int, device
 ) -> torch.Tensor:

@@ -31,6 +31,7 @@ import torch
 
 from audio_few_shot_learning_tpu_torch.config import SpecAugParams
 from audio_few_shot_learning_tpu_torch.ops import cuda_build
+from audio_few_shot_learning_tpu_torch.utils.profiling import spanned
 
 NUM_VIEWS = 4
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # ys, tmask, fmask
@@ -107,6 +108,7 @@ def interval_mask(lo: torch.Tensor, hi: torch.Tensor, length: int) -> torch.Tens
     return ((idx >= lo[..., None]) & (idx < hi[..., None])).any(dim=-2)
 
 
+@spanned("afsl.draws")
 def draw_views_params(
     gen: torch.Generator,
     params: SpecAugParams,

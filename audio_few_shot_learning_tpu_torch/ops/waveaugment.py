@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from audio_few_shot_learning_tpu_torch.config import SAMPLE_RATE, WaveAugParams
+from audio_few_shot_learning_tpu_torch.utils.profiling import spanned
 
 # per-dataset spectral statistics (reference utils/augmentations.py:186-207)
 FEATURE_STATS: Dict[str, Dict[str, float]] = {
@@ -634,6 +635,7 @@ class WaveAugment:
                 lambda l: (3 * tm[0] + 12) * l))
         return steps
 
+    @spanned("afsl.draws")
     def draw(self, gen: torch.Generator, shape: Sequence[int], length: int, device) -> ChainDraws:
         """Draws of every step for rows of leading ``shape`` (``[..., aug_num,
         B]`` for ``__call__``), each leaf ``[*shape, ...]``, from ``gen``."""

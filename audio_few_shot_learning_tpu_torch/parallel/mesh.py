@@ -36,6 +36,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from audio_few_shot_learning_tpu_torch.utils.profiling import span
+
 EPISODE_AXIS = "episode"
 
 
@@ -127,12 +129,13 @@ class EpisodeMesh:
         over a flat buffer of all of them (floating tensors of one dtype)."""
         if self.group is None or not tensors:
             return
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-        self.all_reduce_(flat).div_(self.world)
-        offset = 0
-        for t in tensors:
-            t.copy_(flat[offset : offset + t.numel()].view_as(t))
-            offset += t.numel()
+        with span("afsl.allreduce"):
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            self.all_reduce_(flat).div_(self.world)
+            offset = 0
+            for t in tensors:
+                t.copy_(flat[offset : offset + t.numel()].view_as(t))
+                offset += t.numel()
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Every tensor as rank 0 holds it, on every rank (the JAX

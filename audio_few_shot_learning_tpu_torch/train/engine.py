@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -95,12 +96,15 @@ from audio_few_shot_learning_tpu_torch.ops.waveaugment import ChainDraws, WaveAu
 from audio_few_shot_learning_tpu_torch.parallel.mesh import EpisodeMesh, make_mesh
 from audio_few_shot_learning_tpu_torch.train.evaluate import majority_vote_accuracy
 from audio_few_shot_learning_tpu_torch.train.state import make_optimizer, scheduled_lr
-from audio_few_shot_learning_tpu_torch.utils.profiling import profile_trace
+from audio_few_shot_learning_tpu_torch.utils.profiling import (
+    MARK_RING, mark, mark_intervals, marks_made, profile_trace, set_counter, span, spanned,
+)
 
 NUM_SPECAUG_VIEWS = 4  # fixed 4-view expansion
 Store = Union[PackedStore, PackedWavStore, HostStore, WavHostStore]
 METRIC_NAMES = ("loss", "fsl_loss", "cpl_loss")
 RANK_SEED_STRIDE = 2**32  # rank r's generator: seed + 1 + r * stride (runs take seed + i)
+STEP_SPAN = "afsl.train_step"  # the step's span, and the label of its step marks (utils/profiling.py)
 
 # Multi-segment eval batch on the card. Block 0's conv output (channels x
 # F x T in the compute dtype per encoder item, 2.57 MB in bf16 at 128x157)
@@ -219,30 +223,6 @@ class TrainDraws:
     wave_query: Optional[ChainDraws] = None
 
 
-class _StepClock:
-    """Step boundaries as CUDA events on the card (no host synchronization
-    until ``intervals_ms``, after the epoch has been read back) or host
-    clock readings on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: List = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            evt = torch.cuda.Event(enable_timing=True)
-            evt.record()
-            self.marks.append(evt)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals_ms(self) -> List[float]:
-        pairs = zip(self.marks, self.marks[1:])
-        if self.cuda:
-            return [a.elapsed_time(b) for a, b in pairs]
-        return [1e3 * (b - a) for a, b in pairs]
-
-
 def fill_shares(n: int, caps: Sequence[int]) -> List[int]:
     """Episodes each rank takes of an eval batch of ``n``: as many as its
     ``caps`` entry allows, rank by rank, until the batch is spread."""
@@ -351,7 +331,13 @@ class Trainer:
         if not is_host_resident(store):
             return lambda size: sample_episode(self.gen, store, n_way, k_shot, k_query, size, is_test=is_test)
         rng = self.host_rng()
-        return lambda size: self.stager.stage(store, store.plan(rng, n_way, k_shot, k_query, is_test, size))
+
+        def staged(size: int) -> EpisodeBatch:
+            with span("afsl.sample"):
+                plan = store.plan(rng, n_way, k_shot, k_query, is_test, size)
+            return self.stager.stage(store, plan)
+
+        return staged
 
     # ------------------------------------------------------------------
     # views
@@ -364,6 +350,7 @@ class Trainer:
             return 1 + self.exp.waveaug_params.aug_num
         return 1
 
+    @spanned("afsl.views")
     def _make_views(
         self,
         specs: torch.Tensor,
@@ -377,6 +364,7 @@ class Trainer:
             return specs[:, :, None]
         return spec_augment_views(specs, gen, self.exp.specaug_params, draws=draws)
 
+    @spanned("afsl.views")
     def _make_wav_views(
         self,
         sup: torch.Tensor,
@@ -455,36 +443,39 @@ class Trainer:
         if exp.use_attention and vq > 1:
             perms = draws.perms
             if perms is None:
-                u = torch.rand((e, vq - 1), generator=self.gen, device=self.device)
-                perms = u.argsort(dim=-1) + 1
-        outs = self.model(
-            sup_views, qry_views, ep.support_labels, n_way,
-            shuffle_perm=perms, with_contrastive=exp.use_contrastive, gen=self.gen,
-        )
-        tile = 1 if exp.use_attention else vq
-        q_labels = ep.query_labels.repeat(1, tile)  # loops/loops.py:36-37
+                with span("afsl.draws"):
+                    u = torch.rand((e, vq - 1), generator=self.gen, device=self.device)
+                    perms = u.argsort(dim=-1) + 1
+        with span("afsl.forward"):
+            outs = self.model(
+                sup_views, qry_views, ep.support_labels, n_way,
+                shuffle_perm=perms, with_contrastive=exp.use_contrastive, gen=self.gen,
+            )
+        with span("afsl.loss"):
+            tile = 1 if exp.use_attention else vq
+            q_labels = ep.query_labels.repeat(1, tile)  # loops/loops.py:36-37
 
-        fsl = fsl_loss(outs.scores, q_labels)  # [E]
-        aux = torch.zeros_like(fsl)
-        if self.aux_loss:
-            if exp.project_prototypes:  # projecting overrides normalizing
-                protos_c = outs.cpl_prototypes_projected
-            elif exp.normalize_prototypes:
-                protos_c = F.normalize(outs.prototypes, dim=-1)
-            else:
-                protos_c = outs.prototypes
-            if exp.loss.cpl.use:
-                aux = cpl_loss(
-                    protos_c, outs.cpl_features, q_labels, exp.loss.cpl.m_param,
-                    exp.loss.cpl.t_param, gumbel=draws.cpl_gumbel, gen=self.gen,
-                )
-            else:
-                ang = exp.loss.angular
-                aux = angular_loss(
-                    protos_c, outs.cpl_features, q_labels, ang.angle, ang.prototypes_as_anchors
-                )
-        total = (fsl + exp.loss.l_param * aux).mean()
-        metrics = torch.stack([total, fsl.mean(), aux.mean()]).detach()
+            fsl = fsl_loss(outs.scores, q_labels)  # [E]
+            aux = torch.zeros_like(fsl)
+            if self.aux_loss:
+                if exp.project_prototypes:  # projecting overrides normalizing
+                    protos_c = outs.cpl_prototypes_projected
+                elif exp.normalize_prototypes:
+                    protos_c = F.normalize(outs.prototypes, dim=-1)
+                else:
+                    protos_c = outs.prototypes
+                if exp.loss.cpl.use:
+                    aux = cpl_loss(
+                        protos_c, outs.cpl_features, q_labels, exp.loss.cpl.m_param,
+                        exp.loss.cpl.t_param, gumbel=draws.cpl_gumbel, gen=self.gen,
+                    )
+                else:
+                    ang = exp.loss.angular
+                    aux = angular_loss(
+                        protos_c, outs.cpl_features, q_labels, ang.angle, ang.prototypes_as_anchors
+                    )
+            total = (fsl + exp.loss.l_param * aux).mean()
+            metrics = torch.stack([total, fsl.mean(), aux.mean()]).detach()
         return total, metrics
 
     def train_step(self, ep: EpisodeBatch, draws: Optional[TrainDraws] = None) -> torch.Tensor:
@@ -497,48 +488,63 @@ class Trainer:
         On a mesh of W ranks ``ep`` is this rank's share of the global batch
         (``EpisodeMesh.chunk_shard`` of it, with chunks), each chunk holding
         ``episode_microbatch / W`` of its episodes; the gradients and
-        metrics are averaged over the ranks after the last chunk."""
-        self.model.train()
-        e = ep.support.shape[0]
-        chunk = self.microbatch // self.mesh.world if self.microbatch else e
-        size = chunk if chunk < e else e
-        chunks = e // size
-        self.optimizer.zero_grad(set_to_none=True)
-        metrics = None
-        for c in range(chunks):
-            sl = slice(c * size, (c + 1) * size)
-            total, m = self._loss_and_metrics(_slice_tree(ep, sl), _slice_tree(draws, sl))
-            (total / chunks).backward()
-            metrics = m if metrics is None else metrics + m
-        metrics = metrics / chunks
-        self.mesh.all_reduce_mean_([p.grad for p in self.model.parameters() if p.grad is not None] + [metrics])
-        exp = self.exp
-        lr = scheduled_lr(
-            self.step, exp.lr, exp.scheduler_milestones, exp.scheduler_gamma, self.steps_per_epoch
-        )
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
-        return metrics
+        metrics are averaged over the ranks after the last chunk.
 
+        The step runs in the ``afsl.train_step`` span, which opens with a
+        step mark: the step's boundary on the device (``last_step_ms``)."""
+        with span(STEP_SPAN):
+            mark(self.device, STEP_SPAN)
+            self.model.train()
+            e = ep.support.shape[0]
+            chunk = self.microbatch // self.mesh.world if self.microbatch else e
+            size = chunk if chunk < e else e
+            chunks = e // size
+            with span("afsl.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            metrics = None
+            for c in range(chunks):
+                sl = slice(c * size, (c + 1) * size)
+                total, m = self._loss_and_metrics(_slice_tree(ep, sl), _slice_tree(draws, sl))
+                with span("afsl.backward"):
+                    (total / chunks).backward()
+                metrics = m if metrics is None else metrics + m
+            with span("afsl.optimizer"):
+                metrics = metrics / chunks
+                self.mesh.all_reduce_mean_([p.grad for p in self.model.parameters() if p.grad is not None]
+                                           + [metrics])
+                exp = self.exp
+                lr = scheduled_lr(
+                    self.step, exp.lr, exp.scheduler_milestones, exp.scheduler_gamma, self.steps_per_epoch
+                )
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+            self.step += 1
+            return metrics
+
+    @spanned("afsl.train_epoch")
     def train_epoch(self) -> Dict[str, float]:
         """``steps_per_epoch`` steps of ``episode_batch`` episodes sampled from
         the train store (host-fed for a host store: the JAX package's
         ``_run_epoch_hostfed``), each rank of a mesh sampling its share; the
-        metrics are read back once, at the end."""
+        metrics are read back once, at the end. ``last_step_ms`` holds each
+        step's milliseconds, from its start to the next step's (the last
+        step's to its end), on the device's clock; an epoch of more steps
+        than the step marks' ring holds keeps its last ones, and warns."""
         exp = self.exp
-        clock = _StepClock(self.device)
         per_step = []
         t0 = time.perf_counter()
         batches = self._batches(self.train_store, exp.n_way_train, exp.n_shot_train, exp.n_query_train)
-        clock.mark()
+        first = marks_made()
         for _ in range(self.steps_per_epoch):
             per_step.append(self.train_step(batches(self.episode_batch // self.mesh.world)))
-            clock.mark()
+        mark(self.device, STEP_SPAN, end=True)  # closes the last step's interval
+        if marks_made() - first > MARK_RING:
+            warnings.warn(f"last_step_ms holds the last {MARK_RING - 1} of the epoch's {self.steps_per_epoch} steps",
+                          stacklevel=2)
         means = torch.stack(per_step).mean(dim=0).tolist()  # the epoch's one synchronization
         self.last_epoch_seconds = time.perf_counter() - t0
-        self.last_step_ms = clock.intervals_ms()
+        self.last_step_ms = [m["ms"] for m in mark_intervals(STEP_SPAN, first)]
         out = dict(zip(METRIC_NAMES, means))
         if not self.aux_loss:
             out["cpl_loss"] = float("nan")  # the reference reports NaN (loops/loops.py:59)
@@ -586,8 +592,10 @@ class Trainer:
             sup_draws, qry_draws = draws if draws is not None else (None, None)
             sup_views = self._make_views(ep.support, self.specaug, gen, sup_draws)
             qry_views = self._make_views(ep.query, self._v_query(augment_query) > 1, gen, qry_draws)
-        return self.model(sup_views, qry_views, ep.support_labels, n_way).scores
+        with span("afsl.forward"):
+            return self.model(sup_views, qry_views, ep.support_labels, n_way).scores
 
+    @spanned("afsl.eval_batch")
     def _eval_episodes(
         self,
         ep: EpisodeBatch,
@@ -601,7 +609,9 @@ class Trainer:
     ) -> torch.Tensor:
         """Accuracy per episode ``[E]``: of every query row, or with
         ``multisegment`` of the majority votes over each query item's
-        ``s_max`` rows (``vote_accuracy``)."""
+        ``s_max`` rows (``vote_accuracy``). Sets ``last_eval_batch`` to the
+        batch's E."""
+        self.last_eval_batch = ep.support.shape[0]
         scores = self._episode_scores(ep, n_way, augment_query, self.gen, draws, store)
         if multisegment:
             return self.vote_accuracy(scores, ep, n_way, tie_strategy, s_max)
@@ -610,6 +620,7 @@ class Trainer:
         return (scores.argmax(dim=-1) == q_labels).to(torch.float32).mean(dim=-1)
 
     @staticmethod
+    @spanned("afsl.vote")
     def vote_accuracy(
         scores: torch.Tensor, ep: EpisodeBatch, n_way: int, tie_strategy: str, s_max: int
     ) -> torch.Tensor:
@@ -642,7 +653,9 @@ class Trainer:
         """Episodes per eval batch: ``eval_episode_batch`` (at most
         ``n_tasks``), cut for multi-segment eval to ``multisegment_eval_batch``
         of the memory free now: what the card reports free plus what the
-        caching allocator holds unused."""
+        caching allocator holds unused. The multi-segment rule's reading of
+        the free memory goes to the counter ``eval.rule_free_bytes`` (None on
+        the CPU)."""
         batch = min(self.eval_episode_batch, n_tasks)
         if not multisegment:
             return batch
@@ -651,6 +664,7 @@ class Trainer:
             free = (torch.cuda.mem_get_info(self.device)[0] + torch.cuda.memory_reserved(self.device)
                     - torch.cuda.memory_allocated(self.device))
         episode = self.episode_bytes(store, n_way, k_shot, k_query, augment_query)
+        set_counter("eval.rule_free_bytes", free)
         return multisegment_eval_batch(
             batch, store.s_max, episode, free, int(np.prod(store.feat_shape)),
             self.exp.tpu.eval_segment_budget,
@@ -691,6 +705,7 @@ class Trainer:
                                    tie_strategy)
         return float(acc.mean()), float(acc.std())
 
+    @spanned("afsl.eval_accuracies")
     @torch.inference_mode()
     def eval_accuracies(
         self,
@@ -706,7 +721,7 @@ class Trainer:
         """Accuracy of each of ``n_tasks`` episodes; with ``multisegment``,
         of the majority votes of each query item's segments under
         ``tie_strategy``. The accuracies are read back once, at the end;
-        ``last_eval_batch`` holds the episodes per batch on this device. A
+        ``last_eval_batch`` then holds the episodes per batch on this device. A
         host store feeds the batches from the host (the JAX package's
         host-fed eval), with one host Generator for the call.
 
@@ -728,7 +743,6 @@ class Trainer:
             caps = mesh.gather(torch.tensor([batch]), [mesh.rank], mesh.world).tolist()
         else:
             caps = mesh.shares(batch)
-        self.last_eval_batch = caps[mesh.rank]
         t0 = time.perf_counter()
         batches = self._batches(store, n_way, k_shot, k_query, is_test=multisegment)
         accs, positions = [], []
@@ -746,6 +760,7 @@ class Trainer:
         local = torch.cat(accs) if accs else torch.zeros(0, device=self.device)
         acc = mesh.gather(local, positions, n_tasks).cpu().numpy()
         self.last_eval_seconds = time.perf_counter() - t0
+        self.last_eval_batch = caps[mesh.rank]  # the per-batch E, not the last batch's remainder
         return acc
 
     def test(self) -> Dict[str, float]:
@@ -762,6 +777,7 @@ class Trainer:
         )
         return {"mean_accuracy": mean, "accuracy_std": std}
 
+    @spanned("afsl.predict")
     @torch.inference_mode()
     def predict_episode(
         self,
@@ -791,8 +807,10 @@ class Trainer:
         labels = torch.as_tensor(np.asarray(support_labels), dtype=torch.long)
         if n_way is None:
             n_way = int(labels.max()) + 1
-        sup = torch.as_tensor(np.asarray(support, np.float32)).to(self.device)[None]
-        qry = torch.as_tensor(np.asarray(query, np.float32)).to(self.device)[None]
+        sup = torch.as_tensor(np.asarray(support, np.float32))
+        qry = torch.as_tensor(np.asarray(query, np.float32))
+        with span("afsl.h2d"):
+            sup, qry = sup.to(self.device)[None], qry.to(self.device)[None]
         ep = EpisodeBatch(
             support=sup,
             support_labels=labels.to(self.device)[None],
@@ -805,5 +823,7 @@ class Trainer:
         )
         # no-attention + augmented queries: Q*vq rows view-major; keep the
         # original-view block
-        scores = scores[0, : qry.shape[1]].to(torch.float32).cpu()
+        scores = scores[0, : qry.shape[1]].to(torch.float32)
+        with span("afsl.readback"):  # the host waits here for the device
+            scores = scores.cpu()
         return scores.argmax(dim=-1).numpy(), scores.numpy()

@@ -371,6 +371,8 @@ def profile(fn) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels, ops, collectives = {}, {}, {}
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):  # the program's spans and their device mirrors
+            continue
         us = float(getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0))
         if "all_reduce" in evt.key or "allreduce" in evt.key:  # the host's collective calls
             collectives[evt.key] = evt.count
@@ -424,7 +426,7 @@ def device_kernels(fn, attempts: int = 3) -> list:
             torch.cuda.synchronize()
         names = []
         for evt in prof.key_averages():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            if str(getattr(evt, "device_type", "")).endswith("CUDA") and not getattr(evt, "is_user_annotation", False):
                 names += [evt.key] * evt.count
         if names:
             break

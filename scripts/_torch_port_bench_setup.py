@@ -263,7 +263,7 @@ def device_profile(fn: Callable[[], object], calls: int, device) -> Dict:
     ops: Dict[str, float] = {}
     for evt in prof.key_averages():
         us = float(getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0))
-        if us > 0:
+        if us > 0 and not getattr(evt, "is_user_annotation", False):  # spans' device mirrors are no work
             table = kernels if str(getattr(evt, "device_type", "")).endswith("CUDA") else ops
             table[evt.key] = table.get(evt.key, 0.0) + us / 1e3 / calls
     busy = sum(kernels.values())

@@ -79,7 +79,8 @@ def rates(data_parallel: bool) -> dict:
                 trainer.train_step(sample_episode(trainer.gen, store, 5, 5, 5, e // mesh.world))
             torch.cuda.synchronize(dev)
         wall_us = 1e6 * (time.perf_counter() - t0)
-        kernels = [evt for evt in prof.key_averages() if str(getattr(evt, "device_type", "")).endswith("CUDA")]
+        kernels = [evt for evt in prof.key_averages() if str(getattr(evt, "device_type", "")).endswith("CUDA")
+                   and not getattr(evt, "is_user_annotation", False)]  # the program's spans' device mirrors
         us = lambda evt: float(getattr(evt, "self_device_time_total", 0) or 0)  # noqa: E731
         nccl = [evt for evt in kernels if "nccl" in evt.key.lower()]
         row.update(nccl_kernels_per_step=sum(evt.count for evt in nccl) / PROFILE_STEPS,

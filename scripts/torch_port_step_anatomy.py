@@ -98,17 +98,17 @@ def stage_fns(tr):
 
 
 def measure_stage(fn, steps: int, profile_steps: int, device, warmup: int = 5) -> dict:
-    from audio_few_shot_learning_tpu_torch.train.engine import _StepClock
+    from audio_few_shot_learning_tpu_torch.utils.profiling import mark, mark_intervals, marks_made
 
     for _ in range(warmup):
         fn()
-    clock = _StepClock(device)
-    clock.mark()
+    first = marks_made()
     for _ in range(steps):
+        mark(device, "anatomy")
         fn()
-        clock.mark()
+    mark(device, "anatomy", end=True)
     bench.sync(device)
-    wall = statistics.median(clock.intervals_ms())
+    wall = statistics.median(m["ms"] for m in mark_intervals("anatomy", first))
     prof = bench.device_profile(fn, profile_steps, device)
     dev_ms = prof["device_ms"]
     return dict(wall_ms=wall, device_ms=dev_ms, wall_over_device=None if dev_ms is None else wall / dev_ms,
