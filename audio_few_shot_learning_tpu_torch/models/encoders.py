@@ -24,11 +24,13 @@ passes the batch's ``(S, Vs, Q, Vq)`` layout down and every BatchNorm, the
 head's included, normalizes each (episode, view, support|query) group with
 its own statistics in train mode (``grouped_batch_norm``). In eval mode all
 apply the running statistics, the conv blocks' folded into the conv weights
-when ``fold_bn_eval`` is set. With ``remat`` each conv block is recomputed
-in the backward pass (``torch.utils.checkpoint``) instead of holding its
-full-resolution activations; the recompute leaves the running statistics
-alone, so they move once per forward, as in the JAX package. Dropout draws
-from the generator the caller passes down (``models/dropout.py``).
+when ``fold_bn_eval`` is set; folded block 0 on the card runs as one
+kernel (``ops/convblock.py``, K4). With ``remat``
+each conv block is recomputed in the backward pass
+(``torch.utils.checkpoint``) instead of holding its full-resolution
+activations; the recompute leaves the running statistics alone, so they
+move once per forward, as in the JAX package. Dropout draws from the
+generator the caller passes down (``models/dropout.py``).
 
 On a mesh of more than one rank (``mesh`` set on the module, by
 ``FewShotEpisodeModel.set_mesh``) train mode normalizes with the moments of
@@ -56,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from audio_few_shot_learning_tpu_torch.config import CNNConfig, HybridConfig
 from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
+from audio_few_shot_learning_tpu_torch.ops import convblock
 from audio_few_shot_learning_tpu_torch.ops.rnn import Recurrent
 from audio_few_shot_learning_tpu_torch.parallel.mesh import CrossRankBatchNorm, EpisodeMesh
 
@@ -241,22 +244,33 @@ class ConvBlock(nn.Sequential):
         self, x: torch.Tensor, update_stats: bool = True, view_groups: Optional[ViewGroups] = None
     ) -> torch.Tensor:
         conv, bn = self[0], self[1]
-        if self.fold_bn_eval and not self.training:
-            # eval BN is a per-channel affine and conv is linear, so
-            # BN(conv(x, K, b)) == conv(x, K*inv, b*inv + shift)
-            inv, shift = bn.fold()
-            weight = conv.weight * inv[:, None, None, None]
-            bias = conv.bias * inv + shift
-            x = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
-        else:
-            x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
-            x = bn(x, update_stats, view_groups)
         ph, pw = self.pool
-        if x.shape[2] < ph or x.shape[3] < pw:
+        if x.shape[2] < ph or x.shape[3] < pw:  # the conv keeps the map's size
             raise ValueError(
                 f"pool {self.pool} collapses a {x.shape[2]}x{x.shape[3]} map to zero — "
                 "reduce pool_dim or use longer inputs"
             )
+        # block 0 (one input channel) in eval mode on the card: with the
+        # BatchNorm folded, one kernel (K4) runs the whole block and never
+        # writes the full-resolution map; the kernel's wrapper raises on what
+        # it does not take
+        block0_on_card = not self.training and x.shape[1] == 1 and convblock.on_card(x)
+        if self.fold_bn_eval and not self.training:
+            # eval BN is a per-channel affine and conv is linear, so
+            # BN(conv(x, K, b)) == conv(x, K*inv, b*inv + shift)
+            inv, shift = bn.fold()
+            weight = (conv.weight * inv[:, None, None, None]).to(x.dtype)
+            bias = (conv.bias * inv + shift).to(x.dtype)
+            if block0_on_card:
+                out = convblock.block0_cuda(x, weight, bias, self.pool)
+                convblock.count_block0(True)
+                return out
+            x = F.conv2d(x, weight, bias, padding=1)
+        else:
+            if block0_on_card:
+                convblock.count_block0(False)
+            x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
+            x = bn(x, update_stats, view_groups)
         return F.relu(F.max_pool2d(x, (ph, pw)))
 
 

@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``ops/pallas_utils.py``. Each source
 ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library under ``build/torch_kernels/``
-beside the package, at first use, then loaded with ``ctypes``. The library
-name carries a hash of the source, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is built or loaded at import time.
+beside the package, at first use (all sources at once), then loaded with
+``ctypes``. The library name carries a hash of the source, so an edited
+source is rebuilt and a stale library is never loaded. Nothing is built or
+loaded at import time.
 
 There is no switch between kernel and plain version here: a wrapper takes
 its plain PyTorch version only for a tensor on the CPU, and on a CUDA tensor
@@ -102,11 +103,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     return logs
 
 
+def sources() -> List[str]:
+    """The names of every ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, building it first if needed."""
+    """The ctypes handle of ``csrc/<name>.cu``. The first load builds every
+    source not built yet, all at once (``build``), so one first-use build
+    covers all the kernels."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        build(sources())
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

@@ -114,7 +114,9 @@ STEP_SPAN = "afsl.train_step"  # the step's span, and the label of its step mark
 # s_max 6 and 36, 1.75 x for wav (its log-mel front), at E = 3-16. E is the
 # number of episodes whose EVAL_PEAK_FACTOR x block-0 bytes fill
 # EVAL_MEMORY_SHARE of the free memory; chip_smoke.py holds each batch's
-# peak below both.
+# peak below both. Since block 0 runs as one kernel in eval mode on the
+# card (ops/convblock.py), which never writes that full-resolution map, the
+# rule over-reckons a spec batch's memory on the card.
 EVAL_PEAK_FACTOR = 1.8
 EVAL_MEMORY_SHARE = 0.8
 # Where the device reports no memory (the CPU), the JAX package's rule:

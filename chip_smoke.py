@@ -23,13 +23,16 @@ Imports nothing of JAX or of the JAX package. In order it:
    version and the PyTorch library call(s) computing the same function.
    Times are device times: 20 calls captured in one CUDA graph and replayed
    between CUDA events, so the host's cost of issuing a call is not in them;
+   K4 (eval block 0): the profiler's view of one call at item 34's shapes
+   here (one device op, or the run fails), held and timed last (item 34);
 4. spec slice phase: on a seeded packed store of the benchmark's geometry
    (35 classes x 40 items x 128x157 f32) and the flagship model with seeded
    weights (Hybrid, 64 channels, pool 3, RNN 64, attention 64/1/256, bf16),
    runs ``Trainer.test()`` over 64 single-segment tasks (4 eval batches of 16
    episodes) and one ``predict_episode``, with the kernels' launch counts set
    to 0 just before each and read just after; the launches per eval batch
-   and per prediction must be K1 2 (support, queries), K2 1 and K3 0. Then
+   and per prediction must be K1 2 (support, queries), K2 1 and K3 0, and
+   K4 1 (block 0 of the one encoder pass; so on every eval path). Then
    it times 4 more eval runs and 10 more predictions, and runs each once
    more under ``torch.profiler``: device time by kernel and the device's
    busy share of the wall time;
@@ -198,7 +201,9 @@ Imports nothing of JAX or of the JAX package. In order it:
    straight through against 1 epoch, a resume checkpoint and 1 resumed
    epoch from the same seed: step, generator and epoch equal, parameters
    within 2 lr a step, validation accuracy within ``RESUME_VAL_ATOL``;
-28. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line;
+28. prints ``{"kernels": [...]}`` (K1-K4, each with its bound, times and
+   its launches on every path the run took) and, last, the
+   ``{"ok": true, ...}`` line;
 29. the parity runbook, after the ``--resume`` phase, in a directory under
    ``build/``: ``scripts/torch_port_parity_runbook.py --dry-run``
    in-process over the 15 shipped configs (each on its fabricated split, 2
@@ -249,7 +254,17 @@ Imports nothing of JAX or of the JAX package. In order it:
    the entry points' TF32 flags back after the baseline's defaults; then
    the set-up's ``entry`` (``__graft_entry__.entry``'s counterpart, the
    flagship's eval forward on one episode batch) on the card: finite scores
-   of shape [1, 25, 5].
+   of shape [1, 25, 5];
+34. K4 (eval block 0: conv, folded bias, max-pool, ReLU) at the main path's
+   [200, 1, 128, 157], [3 700, 1, 128, 157] and [200, 1, 128, 126], bf16 and
+   float32, held to its plain version within the rounding bound of
+   ``tests/test_torch_port_cuda.py``, one node in a CUDA graph captured from
+   a call, timed beside its bound on float32 FMAs and, in bf16, on the
+   tensor cores (the 9 taps padded to K = 16: there the bytes bound the
+   pass), its plain version and today's cuDNN conv + bias ``add_`` +
+   max-pool + ReLU. Every eval phase asserts K4's launches (one a batch, a
+   prediction and a classifier encode) and every train phase none. It runs last, so its plain version's 9.5-19 GB
+   maps stay out of the other phases' memory.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -303,6 +318,18 @@ GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
 K1_TOL = 0.0  # the same separately rounded f32 ops as the plain version, in f32 and bf16
 K2_ATOL, K2_RTOL = 1e-4, 1e-5  # another summation order than the plain matmul
 K3_ATOL_DB = 1e-3  # the same f32 products summed in another order, then log10
+# K4 against its plain version, per pooled value, with S the largest sum of
+# |tap| x |input| over its window's conv outputs: (atol over S, rtol);
+# tests/test_torch_port_cuda.py::assert_block0_close says why
+K4_TOL = {"float32": (2.0 ** -19, 2.0 ** -22), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
+K4_CASES = (("flagship eval batch", 200, 157), ("multi-segment episode, s_max 36", 3700, 157),
+            ("nsynth eval batch", 200, NSYNTH_FRAMES))
+K4_CHANNELS, K4_POOL = 64, (3, 3)
+K4_PROFILE_ATTEMPTS = 5
+# K4's bf16 products are exact in float32 and summed in float32, which is
+# what the tensor cores compute: at that rate, with the 9 taps padded to an
+# mma's K of 16, the pass is bound by its bytes
+K4_MMA_K = 16
 SLICE_ATOL, SLICE_ARGMAX_AGREE = 1e-3, 0.99
 WAV_MEAN, WAV_STD = 20.0, 5.0  # roughly z-scores the online log-mel of the seeded clips
 # WaveAugment as bench.py:98-104 trains it: the default chain, 3 augmented copies
@@ -609,6 +636,109 @@ def kernel_phase(dev):
                        plain_ms=plain, library_ms=library, bound_ms=b_ms, bound_by=b_by))
     rows["K2"] = k2
     rows["K3"] = k3_cases(dev, gen)
+    rows["K4"] = k4_device_ops(dev)
+    return rows
+
+
+def k4_inputs(gen, dev, maps, frames, dtype):
+    """Block 0's input [maps, 1, 128, frames], folded weight and bias, in ``dtype``."""
+    import torch
+
+    x = (2 * torch.randn((maps, 1, N_MELS, frames), generator=gen, device=dev)).to(dtype)
+    weight = (torch.randn((K4_CHANNELS, 1, 3, 3), generator=gen, device=dev) / 3).to(dtype)
+    bias = (torch.randn(K4_CHANNELS, generator=gen, device=dev) / 2).to(dtype)
+    return x, weight, bias
+
+
+def k4_device_ops(dev) -> dict:
+    """The profiler's view of one K4 call at each of ``K4_CASES``, bf16 and
+    float32: one device op, ``block0_conv_kernel``. Taken here, at the start
+    of the run (K4's own phase runs last), and retried as ``device_kernels``
+    retries; a trace that stays empty fails the run."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.ops import convblock
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for case, maps, frames in K4_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{case} {str(dtype).replace('torch.', '')}"
+            x, weight, bias = k4_inputs(gen, dev, maps, frames, dtype)
+            ops = device_kernels(lambda: convblock.block0_cuda(x, weight, bias, K4_POOL), attempts=K4_PROFILE_ATTEMPTS)
+            if len(ops) != 1 or "block0_conv_kernel" not in ops[0]:
+                raise AssertionError(f"K4 {name}: one call ran {ops} on the device (profiler, "
+                                     f"{K4_PROFILE_ATTEMPTS} traces)")
+            out[name] = ops
+            del x, weight, bias
+    return out
+
+
+def k4_phase(dev, device_ops):
+    """K4 (eval block 0) against its plain version at the main path's shapes,
+    one device op a call (``device_ops``: the profiler's view, taken in the
+    kernel phase; here the nodes of a CUDA graph captured from a call), timed
+    beside its bound on float32 FMAs and, in bf16, on the tensor cores, its
+    plain version and today's cuDNN conv + bias add_ + max-pool + ReLU as
+    the library's."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_few_shot_learning_tpu_torch.ops import convblock
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ph, pw = K4_POOL
+    rows = []
+    for case, maps, frames in K4_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            x, weight, bias = k4_inputs(gen, dev, maps, frames, dtype)
+            out = convblock.block0_cuda(x, weight, bias, K4_POOL)
+            ref = convblock.block0_reference(x, weight, bias, K4_POOL)
+            s_sum = F.max_pool2d(F.conv2d(x.float().abs(), weight.float().abs(), padding=1), K4_POOL)
+            atol, rtol = K4_TOL[name]
+            err = (out.float() - ref.float()).abs()
+            over = (err - atol * s_sum - rtol * ref.float().abs()).max().item()
+            max_err = err.max().item()
+            del ref, s_sum, err
+            if over > 0:
+                raise AssertionError(f"K4 {case} {name} disagrees with its plain version: max error {max_err}, "
+                                     f"{over} beyond the rounding bound")
+
+            def call():
+                return convblock.block0_cuda(x, weight, bias, K4_POOL)
+
+            before = convblock.block0_cuda.launches
+            graph_ops = graph_device_ops(call)
+            launched = convblock.block0_cuda.launches - before
+            if graph_ops != ["kernel"] or launched != 2:  # the warm-up call and the captured one
+                raise AssertionError(f"K4 {case} {name}: one call put {graph_ops} on the stream (graph nodes), "
+                                     f"{launched} launches in two calls")
+            calls = 2 if maps > 1000 else GRAPH_CALLS  # the plain version holds 9.5-19 GB a call at 3 700 maps
+            hp, wp = N_MELS // ph, frames // pw
+            flops = 2 * 9 * ph * pw * K4_CHANNELS * hp * wp * maps
+            n_bytes = nbytes(x, weight, bias, out)
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            mma = None
+            if dtype == torch.bfloat16:
+                t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops * K4_MMA_K / 9 / BF16_DENSE_FLOPS
+                mma = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+            ms = graph_ms(call, calls=calls)
+            plan = convblock.block0_plan(maps, N_MELS, frames, K4_CHANNELS, ph, pw)
+            rows.append(dict(
+                case=case, shape=[maps, 1, N_MELS, frames], dtype=name, channels=K4_CHANNELS, pool=list(K4_POOL),
+                max_abs_err=max_err, tolerance=list(K4_TOL[name]),
+                device_ops_per_call=device_ops[f"{case} {name}"], graph_nodes_per_call=graph_ops,
+                pair=plan.pair, tile_rows=plan.tile_rows, blocks=plan.blocks, threads=plan.threads,
+                smem_bytes=plan.smem_bytes, ms=ms,
+                plain_ms=graph_ms(lambda: convblock.block0_reference(x, weight, bias, K4_POOL), calls=calls),
+                library_ms=graph_ms(lambda: F.relu(F.max_pool2d(
+                    F.conv2d(x, weight, padding=1).add_(bias[:, None, None]), K4_POOL)), calls=calls),
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms, gflop=flops / 1e9,
+                bound_ms_tensor_cores=mma and mma[0], bound_by_tensor_cores=mma and mma[1],
+                share_of_tensor_core_bound=mma and mma[0] / ms))
+            del x, weight, bias, out
+            torch.cuda.empty_cache()  # the plain version's 9.5-19 GB maps at 3 700 maps
     return rows
 
 
@@ -784,34 +914,44 @@ def kernel_counters():
     return counters()
 
 
+def block0_counter():
+    """K4's wrapper, which counts its launches in ``.launches`` (apart from
+    K1-K3's counters, whose lists every phase compares whole)."""
+    from audio_few_shot_learning_tpu_torch.ops import convblock
+
+    return convblock.block0_cuda
+
+
 def serve_phase(dev, store, input_type, expected, waveaug=None):
     """Trainer.test() and predict_episode on the flagship model, bf16, with
-    the launches of K1, K2, K3 per eval batch and per prediction asserted."""
+    the launches of K1, K2, K3 per eval batch and per prediction asserted,
+    and K4's (one a batch and a prediction)."""
     import torch
 
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels = kernel_counters()
+    kernels, k4 = kernel_counters(), block0_counter()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(flagship_exp(input_type, waveaug), ModelConfig(), store, test_store=store,
                       device=dev, seed=0)
     trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans
 
-    for k in kernels:
+    for k in (*kernels, k4):
         k.launches = 0
     result = trainer.test()
     eval_launches = [k.launches for k in kernels]
+    k4_eval = k4.launches
     eval_s = [trainer.last_eval_seconds]
     acc = result["mean_accuracy"]
     if not (np.isfinite(acc) and 0.0 <= acc <= 1.0):
         raise AssertionError(f"test accuracy out of range: {result}")
     n_batches = TEST_TASKS // EVAL_BATCH
     per_batch = [n / n_batches for n in eval_launches]
-    if per_batch != expected:
+    if per_batch != expected or k4_eval != n_batches:
         raise AssertionError(
             f"{input_type} eval path launched K1, K2, K3 {per_batch} times per batch "
-            f"({eval_launches} in {n_batches} batches); expected {expected}"
+            f"({eval_launches} in {n_batches} batches; K4 {k4_eval}); expected {expected} and K4 1"
         )
 
     def run_eval():
@@ -831,20 +971,21 @@ def serve_phase(dev, store, input_type, expected, waveaug=None):
     support, query = rows[: N_WAY * K_SHOT], rows[N_WAY * K_SHOT :]
     labels = np.repeat(np.arange(N_WAY), K_SHOT)
     trainer.predict_episode(support, labels, query)  # warm-up
-    for k in kernels:
+    for k in (*kernels, k4):
         k.launches = 0
     t0 = time.perf_counter()
     pred, scores = trainer.predict_episode(support, labels, query)
     predict_ms = [1e3 * (time.perf_counter() - t0)]
     predict_launches = [k.launches for k in kernels]
+    k4_predict = k4.launches
     if scores.shape != (N_WAY * K_QUERY, N_WAY) or not np.isfinite(scores).all():
         raise AssertionError(f"predict scores malformed: {scores.shape}")
     if pred.shape != (N_WAY * K_QUERY,) or pred.min() < 0 or pred.max() >= N_WAY:
         raise AssertionError(f"predictions malformed: {pred}")
-    if predict_launches != expected:
+    if predict_launches != expected or k4_predict != 1:
         raise AssertionError(
-            f"{input_type} predict path launched K1, K2, K3 {predict_launches} times; "
-            f"expected {expected}"
+            f"{input_type} predict path launched K1, K2, K3 {predict_launches} times, K4 {k4_predict}; "
+            f"expected {expected} and K4 1"
         )
 
     def run_predict():
@@ -864,7 +1005,8 @@ def serve_phase(dev, store, input_type, expected, waveaug=None):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         predict_ms=predict_ms, predict_ms_median=float(np.median(predict_ms)),
         eval_launches=eval_launches, eval_launches_per_batch=per_batch,
-        predict_launches=predict_launches,
+        predict_launches=predict_launches, k4_eval_launches=k4_eval,
+        k4_launches_per_eval_batch=k4_eval / n_batches, k4_launches_per_predict=k4_predict,
         eval_profile=eval_profile, predict_profile=predict_profile,
     )
 
@@ -1029,7 +1171,8 @@ def bn_counts(model) -> list:
 
 def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=False):
     """``Trainer.train_epoch`` for ``epochs`` epochs on ``store`` with the
-    launches of K1, K2, K3 per step (per chunk: ``expected`` x chunks) and,
+    launches of K1, K2, K3 per step (per chunk: ``expected`` x chunks; K4
+    none: train mode) and,
     with ``check_bn``, each BatchNorm's updates per chunk asserted; then
     ``validate()`` and a profiler pass over ``profile_steps`` more steps."""
     import torch
@@ -1045,16 +1188,17 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
     chunks = e // (trainer.microbatch or e)
     steps = trainer.steps_per_epoch
     bn_before = bn_counts(trainer.model)
-    for k in kernels:
+    k4 = block0_counter()
+    for k in (*kernels, k4):
         k.launches = 0
     epochs_out = [trainer.train_epoch()]
-    launches = [k.launches for k in kernels]
+    launches, k4_launches = [k.launches for k in kernels], k4.launches
     bn_moves = [b - a for a, b in zip(bn_before, bn_counts(trainer.model))]
     want = [n * chunks for n in expected]
-    if [n / steps for n in launches] != want:
+    if [n / steps for n in launches] != want or k4_launches:
         raise AssertionError(
             f"train path launched K1, K2, K3 {launches} times in {steps} steps of {chunks} "
-            f"chunk(s); expected {want} per step"
+            f"chunk(s), K4 {k4_launches}; expected {want} per step and K4 0 (train mode)"
         )
     if check_bn and bn_moves != [steps * chunks] * len(bn_moves):
         raise AssertionError(
@@ -1082,7 +1226,7 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
         episode_batch=e, microbatch=trainer.microbatch, chunks=chunks,
         remat=trainer.exp.tpu.remat_enabled(), steps_per_epoch=steps, epochs=epochs_out,
         launches_first_epoch=launches, launches_per_step=[n / steps for n in launches],
-        bn_updates_first_epoch=bn_moves, step_ms=step_ms, step_ms_median=med,
+        k4_launches_per_step=k4_launches / steps, bn_updates_first_epoch=bn_moves, step_ms=step_ms, step_ms_median=med,
         train_episodes_per_s_median=1e3 * e / med, peak_mem_gb=peak,
         validate=dict(mean=val[0], std=val[1], seconds=trainer.last_eval_seconds),
         profile_steps=profile_steps, profile=prof,
@@ -1948,8 +2092,13 @@ def dp_two_ranks_phase():
     ``parallel/dryrun.py::GRAD_REL``), 4 steps' mean loss, and a 32-task
     eval gathered against one process replaying each rank's episodes and
     draws. Here besides: launches per rank per step K1 2, K2 1, K3 0."""
+    import torch
+
     from audio_few_shot_learning_tpu_torch.parallel.dryrun import STEPS, dryrun_multichip
 
+    # the two rank processes share the card with this one, whose caching
+    # allocator still holds 20-30 GB of free blocks from the earlier phases
+    torch.cuda.empty_cache()
     out = dryrun_multichip(2, "gloo", "cuda", width="flagship", per_rank=4, eval_tasks=32)
     if out["launches_per_step"] != [[SPEC_LAUNCHES] * STEPS] * 2:
         raise AssertionError(f"two-rank steps launched K1, K2, K3 {out['launches_per_step']} per rank and step; "
@@ -2193,19 +2342,20 @@ def entry_points_phase(dev):
         labels = ep.support_labels[0]
         view_launches = [k.launches for k in kernels]
         clf = PrototypicalNetworks(exp, mdl, state_dict=original, device=dev)
-        encode = []
+        encode, k4_encode = [], []
         for call in (lambda: clf.process_support_set(sup_v, labels), lambda: clf(qry_v)):
-            before = [k.launches for k in kernels]
+            before, k4_before = [k.launches for k in kernels], block0_counter().launches
             result = call()
             encode.append([k.launches - b for k, b in zip(kernels, before)])
+            k4_encode.append(block0_counter().launches - k4_before)
         clf_scores = result.float()
         with torch.inference_mode():
             model_scores = clf.model(sup_v, qry_v, labels, N_WAY).scores.float()
         clf_err = float((clf_scores - model_scores).abs().max())
         if not (clf_err <= CLASSIFIER_ATOL and torch.equal(clf_scores.argmax(-1), model_scores.argmax(-1))):
             raise AssertionError(f"classifier scores {clf_err} off the model's forward, or another argmax")
-        if view_launches != [2, 0, 0] or any(n != [0, 1, 0] for n in encode):
-            raise AssertionError(f"views launched {view_launches}, encode calls {encode}")
+        if view_launches != [2, 0, 0] or any(n != [0, 1, 0] for n in encode) or k4_encode != [1, 1]:
+            raise AssertionError(f"views launched {view_launches}, encode calls {encode}, K4 {k4_encode}")
         exp32 = dataclasses.replace(exp, tpu=dataclasses.replace(exp.tpu, compute_dtype="float32"))
         pair = []
         for device in (dev, "cpu"):
@@ -2226,6 +2376,7 @@ def entry_points_phase(dev):
             raise AssertionError(f"contrastive_forward gave shapes {shapes} or non-finite values")
         out["classifier"] = dict(
             seconds=time.perf_counter() - t0, view_launches=view_launches, launches_per_encode_call=encode,
+            k4_launches_per_encode_call=k4_encode,
             scores_max_abs_err_vs_forward=clf_err, tolerance=CLASSIFIER_ATOL, compute_dtype=exp.tpu.compute_dtype,
             float32_card_vs_cpu_max_abs_err=f32_err, float32_argmax_agreement=agree,
             accuracy=float((clf_scores.argmax(-1) == ep.query_labels[0]).float().mean()),
@@ -2395,7 +2546,7 @@ def birdclef_dict(name, **over):
 
 def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_run=True, timed_runs=TIMED_RUNS):
     """``Trainer.test()`` with ``multi_segm`` over ``tasks`` tasks (the
-    config's tie strategy), launches of K1, K2, K3 per eval batch asserted;
+    config's tie strategy), launches of K1, K2, K3 (and K4, one) per eval batch asserted;
     the eval batch E the engine reckoned from the free memory, and the peak
     of allocated memory over one batch against the reckoned bytes (it must
     stay within ``EVAL_PEAK_FACTOR``); with ``tie_tasks``, ``evaluate`` under
@@ -2407,7 +2558,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
     from audio_few_shot_learning_tpu_torch.train import engine
 
     exp = ExperimentConfig.from_dict({**exp_dict, "n_testing_tasks": tasks})
-    kernels = kernel_counters()
+    kernels, k4 = kernel_counters(), block0_counter()
     trainer = engine.Trainer(exp, ModelConfig(), store, test_store=store, device=dev, seed=0)
     aug = exp.test_query_augmentations
     run = dict(n_way=N_WAY, k_shot=K_SHOT, k_query=K_QUERY, augment_query=aug, multisegment=True)
@@ -2423,7 +2574,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
             f"{factor:.3f} x the reckoned block-0 bytes (EVAL_PEAK_FACTOR {engine.EVAL_PEAK_FACTOR}) "
             f"and {peak / free:.3f} of the free memory (EVAL_MEMORY_SHARE {engine.EVAL_MEMORY_SHARE})")
 
-    for k in kernels:
+    for k in (*kernels, k4):
         k.launches = 0
     result = trainer.test()
     launches = [k.launches for k in kernels]
@@ -2432,9 +2583,11 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
         raise AssertionError(f"multi-segment test accuracy out of range: {result}")
     n_batches = -(-tasks // trainer.last_eval_batch)
     per_batch = [n / n_batches for n in launches]
-    if per_batch != expected:
+    k4_per_batch = k4.launches / n_batches
+    if per_batch != expected or k4_per_batch != 1:
         raise AssertionError(f"multi-segment eval launched K1, K2, K3 {per_batch} times per batch "
-                             f"({launches} in {n_batches} batches); expected {expected}")
+                             f"({launches} in {n_batches} batches), K4 {k4_per_batch}; expected {expected} "
+                             f"and K4 1")
     # the rate: runs of TIMED_BATCHES full batches of the reckoned E
     timed = TIMED_BATCHES * e
     eval_s = []
@@ -2459,7 +2612,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
         episode_block0_gb=episode_bytes / 1e9, peak_over_one_batch_gb=peak / 1e9,
         peak_factor=factor, peak_factor_limit=engine.EVAL_PEAK_FACTOR, peak_share_of_free=peak / free,
         share_limit=engine.EVAL_MEMORY_SHARE,
-        launches=launches, launches_per_batch=per_batch, batches=n_batches,
+        launches=launches, launches_per_batch=per_batch, k4_launches_per_batch=k4_per_batch, batches=n_batches,
         timed_tasks=timed, timed_batches=TIMED_BATCHES, timed_runs=timed_runs, eval_seconds=eval_s, eval_episodes_per_s=eps, eval_episodes_per_s_median=float(np.median(eps)),
         other_tie_strategies=ties, profile=prof,
     )
@@ -2846,7 +2999,7 @@ def store_row(store) -> dict:
 
 def hostfed_train_phase(dev, store, exp, expected, device_row, epochs=2):
     """``Trainer.train_epoch`` on a host store (the host sampler, pinned
-    double-buffered copies), launches of K1, K2, K3 per step (per chunk)
+    double-buffered copies), launches of K1, K2, K3 per step (per chunk; K4 none)
     asserted as on the device store; ms per step and episodes/s beside
     ``device_row`` (the device-store train phase of this run), H2D bytes per
     step, the copy's own time, and the device's busy share under the
@@ -2856,21 +3009,21 @@ def hostfed_train_phase(dev, store, exp, expected, device_row, epochs=2):
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels = kernel_counters()
+    kernels, k4 = kernel_counters(), block0_counter()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=0)
     if not trainer.host_mode:
         raise AssertionError("a host store should put the trainer in host mode")
     e, steps = trainer.episode_batch, trainer.steps_per_epoch
     chunks = e // (trainer.microbatch or e)
-    for k in kernels:
+    for k in (*kernels, k4):
         k.launches = 0
     epochs_out = [trainer.train_epoch()]
-    launches = [k.launches for k in kernels]
+    launches, k4_launches = [k.launches for k in kernels], k4.launches
     want = [n * chunks for n in expected]
-    if [n / steps for n in launches] != want:
-        raise AssertionError(f"host-fed train launched K1, K2, K3 {launches} times in {steps} steps; "
-                             f"expected {want} per step")
+    if [n / steps for n in launches] != want or k4_launches:
+        raise AssertionError(f"host-fed train launched K1, K2, K3 {launches} times in {steps} steps, K4 "
+                             f"{k4_launches}; expected {want} per step and K4 0 (train mode)")
     trainer.stager.trace = []
     h2d0 = trainer.stager.h2d_bytes
     for _ in range(1, epochs):
@@ -2889,7 +3042,8 @@ def hostfed_train_phase(dev, store, exp, expected, device_row, epochs=2):
     med = float(np.median(step_ms))
     return dict(
         **store_row(store), episode_batch=e, chunks=chunks, steps_per_epoch=steps, epochs=epochs_out,
-        launches_first_epoch=launches, launches_per_step=[n / steps for n in launches], step_ms=step_ms,
+        launches_first_epoch=launches, launches_per_step=[n / steps for n in launches],
+        k4_launches_per_step=k4_launches / steps, step_ms=step_ms,
         step_ms_median=med, step_ms_min=min(step_ms), train_episodes_per_s_median=1e3 * e / med,
         device_store_step_ms_median=device_row["step_ms_median"], device_store_step_ms_min=min(device_row["step_ms"]),
         device_store_episodes_per_s_median=device_row["train_episodes_per_s_median"],
@@ -2910,18 +3064,19 @@ def hostfed_eval_phase(dev, store, input_type, expected, device_row):
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels = kernel_counters()
+    kernels, k4 = kernel_counters(), block0_counter()
     trainer = Trainer(flagship_exp(input_type), ModelConfig(), store, test_store=store, device=dev, seed=0)
     trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans, buffers
-    for k in kernels:
+    for k in (*kernels, k4):
         k.launches = 0
     result = trainer.test()
     launches = [k.launches for k in kernels]
     n_batches = TEST_TASKS // EVAL_BATCH
     per_batch = [n / n_batches for n in launches]
-    if per_batch != expected or not 0.0 <= result["mean_accuracy"] <= 1.0:
-        raise AssertionError(f"host-fed {input_type} eval launched K1, K2, K3 {per_batch} per batch "
-                             f"(expected {expected}); {result}")
+    k4_per_batch = k4.launches / n_batches
+    if per_batch != expected or k4_per_batch != 1 or not 0.0 <= result["mean_accuracy"] <= 1.0:
+        raise AssertionError(f"host-fed {input_type} eval launched K1, K2, K3 {per_batch} per batch, K4 "
+                             f"{k4_per_batch} (expected {expected} and K4 1); {result}")
     trainer.stager.trace = []
     eval_s = [trainer.last_eval_seconds]
     for _ in range(4):
@@ -2935,19 +3090,21 @@ def hostfed_eval_phase(dev, store, input_type, expected, device_row):
     support, query = ep.support[0].float().numpy(), ep.query[0].float().numpy()
     labels = np.repeat(np.arange(N_WAY), K_SHOT)
     trainer.predict_episode(support, labels, query)  # warm-up
-    for k in kernels:
+    for k in (*kernels, k4):
         k.launches = 0
     t0 = time.perf_counter()
     _, scores = trainer.predict_episode(support, labels, query)
     predict_ms = 1e3 * (time.perf_counter() - t0)
     predict_launches = [k.launches for k in kernels]
-    if predict_launches != expected or scores.shape != (N_WAY * K_QUERY, N_WAY) or not np.isfinite(scores).all():
-        raise AssertionError(f"host-fed predict launched K1, K2, K3 {predict_launches}; scores {scores.shape}")
+    if (predict_launches != expected or k4.launches != 1 or scores.shape != (N_WAY * K_QUERY, N_WAY)
+            or not np.isfinite(scores).all()):
+        raise AssertionError(f"host-fed predict launched K1, K2, K3 {predict_launches}, K4 {k4.launches}; "
+                             f"scores {scores.shape}")
     eps = [TEST_TASKS / t for t in eval_s]
     med = float(np.median(eps))
     return dict(
         **store_row(store), test=result, launches=launches, launches_per_batch=per_batch,
-        eval_episodes_per_s=eps, eval_episodes_per_s_median=med,
+        k4_launches_per_batch=k4_per_batch, k4_launches_per_predict=k4.launches, eval_episodes_per_s=eps, eval_episodes_per_s_median=med,
         eval_batch_ms_median=1e3 * float(np.median(eval_s)) / n_batches,
         device_store_eval_episodes_per_s_median=device_row["eval_episodes_per_s_median"],
         device_store_eval_batch_ms_median=device_row["eval_batch_ms_median"],
@@ -3114,7 +3271,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["specaugment", "protohead", "mel"])
+    logs = cuda_build.build(cuda_build.sources())
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs) or 'nothing (cached)'} from csrc/ with nvcc for sm_90a "
           f"in {build_s:.1f} s", flush=True)
@@ -3406,6 +3563,39 @@ def main() -> int:
                                                    if row["launches_per_train_step"]},
             launches_per_bench_headline_step=per_call(bench_run["line"]["launches_per_step"], i),
         ))
+    # last: its plain version's 9.5-19 GB maps at 3 700 maps stay out of the
+    # other phases' memory (the multi-segment phases reckon E from what is free)
+    k4 = k4_phase(dev, kern["K4"])
+    print(f"K4 phase ({card}): " + json.dumps(k4), flush=True)
+    r = k4[0]  # the flagship eval batch, bf16
+    kernels.append(dict(
+        name="block0_conv", route="cuda", source="audio_few_shot_learning_tpu_torch/csrc/block0.cu",
+        replaces="cuDNN conv + ATen bias add_ + max_pool2d + relu of eval block 0 (ConvBlock._block); "
+                 "no TPU kernel (XLA fuses the block)",
+        launches=slc["k4_eval_launches"], launches_per_eval_batch=slc["k4_launches_per_eval_batch"],
+        launches_predict=slc["k4_launches_per_predict"], launches_per_train_step=train["k4_launches_per_step"],
+        launches_per_train_step_in_chunks=accum["k4_launches_per_step"],
+        max_abs_err=r["max_abs_err"], tolerance=r["tolerance"], ms=r["ms"], kernel_ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"], bound_by=r["bound_by"],
+        share_of_bound=r["share_of_bound"], bound_ms_tensor_cores=r["bound_ms_tensor_cores"],
+        bound_by_tensor_cores=r["bound_by_tensor_cores"], share_of_tensor_core_bound=r["share_of_tensor_core_bound"],
+        library_ms=r["library_ms"], library="cuDNN conv + ATen add_ + max_pool2d + relu (today's code on the card)",
+        launch_floor_ms=kern["launch_floor_ms"], device_ops_per_call=r["device_ops_per_call"],
+        graph_nodes_per_call=r["graph_nodes_per_call"], cases=k4[1:],
+        launches_per_wav_eval_batch=wav["k4_launches_per_eval_batch"],
+        launches_wav_predict=wav["k4_launches_per_predict"],
+        launches_per_wavaug_eval_batch=wa["k4_launches_per_eval_batch"],
+        launches_per_wav_train_step=wav_train["k4_launches_per_step"],
+        launches_per_multiseg_batch_s6=ms_flag["k4_launches_per_batch"],
+        **{f"launches_per_multiseg_batch_s36_{name}": run["k4_launches_per_batch"] for name, run in s36.items()},
+        launches_per_multiseg_batch_wav=mw["k4_launches_per_batch"],
+        launches_per_wavaug_multiseg_batch=mwa["k4_launches_per_batch"],
+        **{f"launches_per_{name}": row.get("k4_launches_per_step", row.get("k4_launches_per_batch"))
+           for name, row in hostfed.items()},
+        launches_hostfed_predict=host_eval["k4_launches_per_predict"],
+        launches_hostfed_wav_predict=host_wav_eval["k4_launches_per_predict"],
+        launches_per_classifier_encode_call=entry["classifier"]["k4_launches_per_encode_call"],
+    ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

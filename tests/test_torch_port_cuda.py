@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -23,8 +24,9 @@ from audio_few_shot_learning_tpu_torch.config import (  # noqa: E402
 from audio_few_shot_learning_tpu_torch.data.store import PackedStore  # noqa: E402
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore  # noqa: E402
 from audio_few_shot_learning_tpu_torch.device import resolve_device  # noqa: E402
-from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment  # noqa: E402
+from audio_few_shot_learning_tpu_torch.ops import convblock, mel, protohead, specaugment  # noqa: E402
 from audio_few_shot_learning_tpu_torch.train.engine import Trainer  # noqa: E402
+from audio_few_shot_learning_tpu_torch.utils.profiling import read_counter  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +121,116 @@ def test_specaugment_kernel_refuses_what_it_does_not_take(cuda):
         specaugment.views_cuda(spec.transpose(-1, -2).contiguous().transpose(-1, -2), ys, tm, fm, 0.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         specaugment.views_cuda(spec.half(), ys, tm, fm, 0.0)
+
+
+# K4, eval block 0: (maps, H, W, channels, pool). The flagship eval batch's
+# 200 maps of 128x157 (E=16 runs 16 of them at once: the same per map), a
+# multi-segment episode's 3 700 at s_max 36, NSynth's 128x126, one map, H
+# and W not multiples of the pool, a 3x3 map, the test helpers' pool 2 and
+# another pool (both read the patch from shared memory), an odd pooled
+# width at pool 3 (one pixel a thread), and the kernel's most channels
+BLOCK0_SHAPES = [(200, 128, 157, 64, (3, 3)), (3700, 128, 157, 64, (3, 3)), (200, 128, 126, 64, (3, 3)),
+                 (1, 128, 157, 64, (3, 3)), (5, 100, 101, 64, (3, 3)), (2, 3, 3, 64, (3, 3)),
+                 (4, 48, 64, 8, (2, 2)), (3, 20, 31, 8, (2, 3)), (2, 30, 15, 8, (3, 3)),
+                 (2, 49, 50, 256, (3, 3))]
+
+
+def _block0_args(dev, b, h, w, c, dtype, seed=0):
+    """x, the folded weight and bias as ``ConvBlock._block`` hands them over,
+    rounded to the activation's dtype."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (2 * torch.randn((b, 1, h, w), generator=gen, device=dev)).to(dtype)
+    weight = (torch.randn((c, 1, 3, 3), generator=gen, device=dev) / 3).to(dtype)
+    bias = (torch.randn(c, generator=gen, device=dev) / 2).to(dtype)
+    return x, weight, bias
+
+
+def assert_block0_close(out, ref, x, weight, pool):
+    """K4 against its plain version. S, per pooled value, is the largest sum
+    of |tap| x |input| over the conv outputs of its window: a bound on every
+    partial sum. In float32 both sum 9 products in their own order and round
+    the bias add once: within 2^-19 S + 2^-22 |out| (9 roundings of at most
+    2^-24 S each side, two of the output). In bf16 the plain path also rounds
+    the conv output to bf16 before its bias add (half an ulp, 2^-8 of
+    |conv| <= S) and each side rounds its output to bf16 once (2^-8 |out|):
+    within 2^-7 S + 2^-7 |out|, twice the sum of those roundings."""
+    atol, rtol = (2.0 ** -19, 2.0 ** -22) if x.dtype == torch.float32 else (2.0 ** -7, 2.0 ** -7)
+    s = F.max_pool2d(F.conv2d(x.float().abs(), weight.float().abs(), padding=1), tuple(pool))
+    err = (out.float() - ref.float()).abs()
+    limit = atol * s + rtol * ref.float().abs()
+    worst = (err - limit).max().item()
+    assert worst <= 0, f"max error {err.max().item()} beyond the rounding bound by {worst}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BLOCK0_SHAPES, ids=lambda s: "x".join(map(str, s[:4])) + f"-pool{s[4][0]}{s[4][1]}")
+def test_block0_kernel_matches_plain(cuda, dtype, shape):
+    b, h, w, c, pool = shape
+    x, weight, bias = _block0_args(cuda, b, h, w, c, dtype)
+    before = convblock.block0_cuda.launches
+    out = convblock.block0_cuda(x, weight, bias, pool)
+    torch.cuda.synchronize()
+    assert convblock.block0_cuda.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, c, h // pool[0], w // pool[1])
+    ref = convblock.block0_reference(x, weight, bias, pool)
+    assert_block0_close(out, ref, x, weight, pool)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block0_kernel_propagates_nan(cuda, dtype):
+    """A NaN in the input reaches every pooled value whose conv window holds
+    it, through the max and the ReLU, as max_pool2d and relu carry it."""
+    x, weight, bias = _block0_args(cuda, 2, 30, 31, 16, dtype, seed=1)
+    x[0, 0, 7, 9] = float("nan")
+    x[1, 0, 0, 0] = float("nan")
+    out = convblock.block0_cuda(x, weight, bias, (3, 3))
+    ref = convblock.block0_reference(x, weight, bias, (3, 3))
+    torch.cuda.synchronize()
+    assert torch.isnan(ref).any()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    finite = ~torch.isnan(ref)
+    assert_block0_close(torch.where(finite, out, 0), torch.where(finite, ref, 0), torch.nan_to_num(x), weight, (3, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block0_kernel_is_one_device_op(cuda, dtype):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, weight, bias = _block0_args(cuda, 200, 128, 157, 64, dtype, seed=2)
+    convblock.block0_cuda(x, weight, bias, (3, 3))  # built, loaded and warm
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):  # a trace with no device activity at all is the profiler's loss
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            convblock.block0_cuda(x, weight, bias, (3, 3))
+            torch.cuda.synchronize()
+        names = [evt.key for evt in prof.key_averages() for _ in range(evt.count)
+                 if str(evt.device_type).endswith("CUDA")]
+        if names:
+            break
+    # the benchmark files it under "conv" (a name with "conv", without "pool" or "batch_norm")
+    assert len(names) == 1 and "block0_conv_kernel" in names[0], names
+    assert "pool" not in names[0].lower() and "batch_norm" not in names[0].lower()
+
+
+def test_block0_kernel_refuses_what_it_does_not_take(cuda):
+    x, weight, bias = _block0_args(cuda, 2, 12, 13, 8, torch.float32, seed=3)
+    with pytest.raises(ValueError, match="one input channel"):
+        convblock.block0_cuda(x.expand(2, 2, 12, 13).contiguous(), weight, bias, (3, 3))
+    with pytest.raises(ValueError, match="3x3"):
+        convblock.block0_cuda(x, torch.zeros((8, 1, 5, 5), device=cuda), bias, (3, 3))
+    with pytest.raises(ValueError, match="does not fit"):
+        convblock.block0_cuda(x, weight, bias, (13, 3))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        convblock.block0_cuda(x.half(), weight.half(), bias.half(), (3, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        convblock.block0_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), weight, bias, (3, 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        convblock.block0_cuda(x, weight.cpu(), bias, (3, 3))
+    with pytest.raises(ValueError, match="shared memory"):
+        convblock.block0_cuda(torch.zeros((1, 1, 3, 30000), device=cuda), weight, bias, (3, 3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        convblock.block0_cuda(x, weight.clone().requires_grad_(), bias, (3, 3))
 
 
 @pytest.mark.parametrize("n_way,labels", [
@@ -241,10 +353,16 @@ def test_eval_path_launches_both_kernels(cuda):
     })
     mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8}})
     trainer = Trainer(exp, mdl, store, test_store=store)
-    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = 0
+    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = convblock.block0_cuda.launches = 0
+    forwards, kernel_forwards = (read_counter(n) or 0 for n in (convblock.BLOCK0_FORWARDS,
+                                                                convblock.BLOCK0_KERNEL_FORWARDS))
     result = trainer.test()
     assert 0.0 <= result["mean_accuracy"] <= 1.0
-    assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (4, 2)
+    # per batch: K1 twice (support, queries), block 0 once (one encoder pass), K2 once
+    assert (specaugment.views_cuda.launches, convblock.block0_cuda.launches,
+            protohead.episode_scores_cuda.launches) == (4, 2, 2)
+    assert read_counter(convblock.BLOCK0_FORWARDS) == forwards + 2
+    assert read_counter(convblock.BLOCK0_KERNEL_FORWARDS) == kernel_forwards + 2
 
 
 @pytest.mark.parametrize("flavor", ["online", "offline"])
@@ -614,10 +732,16 @@ def test_jax_model_file_tests_on_card(cuda, tmp_path):
         ckpt.load_model(path, source)
     trainer = Trainer(exp, mdl, store, test_store=store)
     trainer.model.load_state_dict(ckpt.load_jax_model(path), strict=True)
-    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = 0
+    specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = convblock.block0_cuda.launches = 0
+    forwards, kernel_forwards = (read_counter(n) or 0 for n in (convblock.BLOCK0_FORWARDS,
+                                                                convblock.BLOCK0_KERNEL_FORWARDS))
     result = trainer.test()
     assert 0.0 <= result["mean_accuracy"] <= 1.0
-    assert (specaugment.views_cuda.launches, protohead.episode_scores_cuda.launches) == (4, 2)
+    # per batch: K1 twice (support, queries), block 0 once (one encoder pass), K2 once
+    assert (specaugment.views_cuda.launches, convblock.block0_cuda.launches,
+            protohead.episode_scores_cuda.launches) == (4, 2, 2)
+    assert read_counter(convblock.BLOCK0_FORWARDS) == forwards + 2
+    assert read_counter(convblock.BLOCK0_KERNEL_FORWARDS) == kernel_forwards + 2
     for key, value in source.state_dict().items():
         if not key.endswith("num_batches_tracked"):
             assert torch.equal(trainer.model.state_dict()[key].cpu(), value), key

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_few_shot_learning_tpu_torch.ops import mel, protohead, specaugment
+from audio_few_shot_learning_tpu_torch.ops import convblock, mel, protohead, specaugment
 
 HOPPER_SMS = 132
 SMEM_227K = 227 * 1024
@@ -271,3 +271,52 @@ def test_views_masks_pass_as_views_without_a_copy():
         specaugment._mask_bytes(mask.to(torch.uint8), "tmask")
     with pytest.raises(ValueError, match="bool"):
         specaugment._mask_bytes(torch.rand(157, 3).t() < 0.3, "tmask")
+
+
+# ----------------------------------------------------------------------------
+# K4 (eval block 0)
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("maps,h,w,pair,rows,tiles,threads,smem", [
+    (200, 128, 157, 2, 6, 7, 160, 4 * (64 * 12 + 20 * 158)),  # the flagship eval batch: 26 pairs a pooled row
+    (3700, 128, 157, 2, 6, 7, 160, 4 * (64 * 12 + 20 * 158)),  # a multi-segment episode at s_max 36
+    (200, 128, 126, 2, 6, 7, 128, 4 * (64 * 12 + 20 * 128)),  # NSynth: 21 pairs a pooled row
+    (1, 128, 157, 2, 6, 7, 160, 4 * (64 * 12 + 20 * 158)),  # one map
+])
+def test_block0_plan_at_path_shapes(maps, h, w, pair, rows, tiles, threads, smem):
+    plan = convblock.block0_plan(maps, h, w, 64, 3, 3)
+    assert (plan.pair, plan.tile_rows, plan.tiles_per_map, plan.threads, plan.smem_bytes) == (
+        pair, rows, tiles, threads, smem)
+    assert plan.blocks == maps * tiles
+
+
+def test_block0_plan_covers_every_pooled_row_within_the_limits():
+    grid = itertools.product([3, 4, 9, 37, 128], [3, 5, 31, 126, 157, 1000], [1, 8, 64, 256],
+                             [(3, 3), (2, 2), (2, 3), (1, 1), (4, 4)])
+    checked = 0
+    for h, w, c, (ph, pw) in grid:
+        if ph > h or pw > w:
+            continue
+        hp, wp = h // ph, w // pw
+        plan = convblock.block0_plan(5, h, w, c, ph, pw)
+        assert plan.pair == (2 if (ph, pw) == convblock.BLOCK0_UNROLLED_POOL and wp % 2 == 0 else 1)
+        assert (plan.tiles_per_map - 1) * plan.tile_rows < hp <= plan.tiles_per_map * plan.tile_rows
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= convblock.BLOCK0_MAX_THREADS
+        assert plan.threads <= max(32, -(-plan.tile_rows * (wp // plan.pair) // 32) * 32)
+        assert plan.smem_bytes == convblock.block0_smem_bytes(c, plan.tile_rows, ph, pw, wp) <= SMEM_227K
+        assert plan.blocks == 5 * plan.tiles_per_map
+        checked += 1
+    assert checked > 300
+
+
+@pytest.mark.parametrize("w,takes", [(157, True), (11466, True), (11469, False), (30000, False)])
+def test_block0_plan_refuses_a_row_wider_than_shared_memory(w, takes):
+    """The plan tiles a map up to 11 466 frames wide at pool 3 and 64
+    channels (one pooled row's tile in shared memory), and raises beyond;
+    ``block0_cuda`` plans before it launches, so it raises there too."""
+    if takes:
+        assert convblock.block0_plan(1, 3, w, 64, 3, 3).smem_bytes <= SMEM_227K
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            convblock.block0_plan(1, 3, w, 64, 3, 3)
