@@ -12,8 +12,9 @@ comes from the input's first bytes, not its name:
 Either way the weights are loaded with ``strict=True`` into the model that
 ``-e/-m`` describe, so a file of another architecture fails here. For the
 'CNN' encoder the head's width depends on the input geometry: give the
-training features' ``--feat-shape F T`` (default 128 157). Conversion runs
-on the CPU and needs no card.
+training features' ``--feat-shape F T`` (default 128 157). An 'AST' model
+has no JAX counterpart and is refused by name. Conversion runs on the CPU
+and needs no card.
 
     python -m audio_few_shot_learning_tpu_torch.cli.convert_checkpoint \\
         -e experiment_config.json -m model_config.json \\
@@ -52,8 +53,10 @@ def main(argv=None):
     from audio_few_shot_learning_tpu_torch.config import load_configs
     from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
     from audio_few_shot_learning_tpu_torch.train import checkpoint as ckpt
+    from audio_few_shot_learning_tpu_torch.train.weights import refuse_ast
 
     exp, mdl = load_configs(args.experiment_config, args.model_config)
+    refuse_ast(exp)
     direction = "from-jax" if ckpt.is_jax_model_file(args.input) else "to-jax"
     if args.direction is not None and args.direction != direction:
         raise ValueError(f"--direction {args.direction}, but {args.input} is read as {direction}")

@@ -289,8 +289,8 @@ class ExperimentConfig:
         )
 
     def validate(self) -> None:
-        if self.encoder_name not in ("CNN", "Hybrid"):
-            raise ValueError(f"encoder_name must be CNN|Hybrid, got {self.encoder_name}")
+        if self.encoder_name not in ("CNN", "Hybrid", "AST"):
+            raise ValueError(f"encoder_name must be CNN|Hybrid|AST, got {self.encoder_name}")
         if self.input_type not in ("spec", "wav"):
             raise ValueError(f"input_type must be spec|wav, got {self.input_type}")
         if self.tie_strategy not in ("", "min_label", "max_posterior"):
@@ -316,6 +316,27 @@ class HybridConfig:
     hidden_channels: int = 64
     pool_dim: Tuple[int, int] = (3, 3)
     out_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ASTConfig:
+    """The Audio Spectrogram Transformer (Gong, Chung and Glass, 2021,
+    arXiv:2104.01778; ``src/models/ast_models.py::ASTModel``): a ViT of
+    ``depth`` pre-LN blocks of width ``embed_dim``, ``num_heads`` heads and an
+    MLP of ``mlp_dim``, over ``patch`` x ``patch`` patches taken at strides
+    ``(fstride, tstride)``, LayerNorm eps ``ln_eps``; its ``mlp_head`` gives
+    ``out_dim`` features. The JAX package has no such encoder. Defaults are
+    the published ViT-B widths and the ESC-50 recipe's strides."""
+
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    patch: int = 16
+    fstride: int = 10
+    tstride: int = 10
+    out_dim: int = 64
+    ln_eps: float = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,10 +382,12 @@ class ModelConfig:
     attention: AttentionConfig = AttentionConfig()
     projection: ProjectionConfig = ProjectionConfig()
     relation: RelationConfig = RelationConfig()
+    ast: ASTConfig = ASTConfig()
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "ModelConfig":
         c = d.get("CNN", {})
+        t = d.get("AST", {})
         h = d.get("Hybrid", {})
         a = d.get("Attention", {})
         p = d.get("Projection", {})
@@ -402,6 +425,17 @@ class ModelConfig:
                 hidden_dim2=int(r.get("hidden_dim2", 128)),
                 hidden_dim3=int(r.get("hidden_dim3", 256)),
                 out_dim=int(r.get("out_dim", 1)),
+            ),
+            ast=ASTConfig(
+                embed_dim=int(t.get("embed_dim", 768)),
+                depth=int(t.get("depth", 12)),
+                num_heads=int(t.get("num_heads", 12)),
+                mlp_dim=int(t.get("mlp_dim", 3072)),
+                patch=int(t.get("patch", 16)),
+                fstride=int(t.get("fstride", 10)),
+                tstride=int(t.get("tstride", 10)),
+                out_dim=int(t.get("out_dim", 64)),
+                ln_eps=float(t.get("ln_eps", 1e-6)),
             ),
         )
 

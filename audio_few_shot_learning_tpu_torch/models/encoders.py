@@ -1,4 +1,5 @@
-"""Backbone encoders: the 4-block CNN and the CNN + RNN hybrid.
+"""Backbone encoders: the 4-block CNN and the CNN + RNN hybrid; the Audio
+Spectrogram Transformer is in ``models/ast.py``.
 
 Counterpart of the JAX package's ``models/encoders.py`` in NCHW:
 
@@ -56,7 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from audio_few_shot_learning_tpu_torch.config import CNNConfig, HybridConfig
+from audio_few_shot_learning_tpu_torch.config import ASTConfig, CNNConfig, HybridConfig
 from audio_few_shot_learning_tpu_torch.models.dropout import Dropout
 from audio_few_shot_learning_tpu_torch.ops import convblock
 from audio_few_shot_learning_tpu_torch.ops.rnn import Recurrent
@@ -287,6 +288,13 @@ def conv_output_shape(feat_shape: Tuple[int, int], pool: Tuple[int, int]) -> Tup
     return f, t
 
 
+def conv_item_bytes(channels: int, feat_shape: Tuple[int, int], dtype: torch.dtype) -> int:
+    """Block 0's conv output of one map, ``channels x F x T`` in ``dtype``: what
+    a map holds at the widest point of a conv encoder's eval forward
+    (``eval_item_bytes``)."""
+    return channels * feat_shape[0] * feat_shape[1] * dtype.itemsize
+
+
 class _LogitsHead(nn.Sequential):
     """Dropout(0.3) -> BatchNorm1d -> Linear(out_dim), in float32."""
 
@@ -332,6 +340,7 @@ class StandardCNN(nn.Module):
         self.compute_dtype = torch_dtype(compute_dtype)
         self.channels = cfg.hidden_channels
         self.out_dim = cfg.out_dim
+        self.eval_item_bytes = conv_item_bytes(self.channels, feat_shape, self.compute_dtype)
         self.conv_encoder = ConvEncoder(cfg.hidden_channels, cfg.pool_dim, fold_bn_eval, remat)
         fp, tp = conv_output_shape(feat_shape, cfg.pool_dim)
         self.logits = _LogitsHead(cfg.hidden_channels * fp * tp, cfg.out_dim)
@@ -364,6 +373,7 @@ class StandardHybrid(nn.Module):
         self.compute_dtype = torch_dtype(compute_dtype)
         c = self.channels = cfg.hidden_channels
         self.out_dim = cfg.out_dim
+        self.eval_item_bytes = conv_item_bytes(c, feat_shape, self.compute_dtype)
         self.conv_encoder = ConvEncoder(c, cfg.pool_dim, fold_bn_eval, remat)
         fp, _ = conv_output_shape(feat_shape, cfg.pool_dim)
         self.hidden = fp * c
@@ -409,9 +419,18 @@ def make_backbone(
     compute_dtype: str = "bfloat16",
     fold_bn_eval: bool = False,
     remat: bool = False,
+    ast_cfg: ASTConfig = ASTConfig(),
 ) -> EncoderModule:
+    """The encoder ``encoder_name`` names under ``backbone.encoder``. Each
+    has ``out_dim`` and ``eval_item_bytes`` (what one map holds at the
+    widest point of its eval forward, which the engine's eval batch rule
+    reckons with)."""
     if encoder_name == "Hybrid":
         return EncoderModule(StandardHybrid(hybrid_cfg, feat_shape, compute_dtype, fold_bn_eval, remat))
     if encoder_name == "CNN":
         return EncoderModule(StandardCNN(cnn_cfg, feat_shape, compute_dtype, fold_bn_eval, remat))
+    if encoder_name == "AST":
+        from audio_few_shot_learning_tpu_torch.models.ast import ASTEncoder
+
+        return EncoderModule(ASTEncoder(ast_cfg, feat_shape, compute_dtype, remat))
     raise ValueError(f"unknown encoder {encoder_name!r}")

@@ -72,6 +72,7 @@ class FewShotEpisodeModel(nn.Module):
             compute_dtype=exp.tpu.compute_dtype,
             fold_bn_eval=exp.tpu.fold_bn_eval,
             remat=exp.tpu.remat_enabled(),
+            ast_cfg=mdl.ast,
         )
         if exp.use_attention:
             self.attention_model = SelfAttention(mdl.attention)

@@ -88,7 +88,6 @@ from audio_few_shot_learning_tpu_torch.data.wavhoststore import WavHostStore
 from audio_few_shot_learning_tpu_torch.data.wavstore import PackedWavStore
 from audio_few_shot_learning_tpu_torch.device import config_device
 from audio_few_shot_learning_tpu_torch.losses import angular_loss, cpl_loss, fsl_loss
-from audio_few_shot_learning_tpu_torch.models.encoders import torch_dtype
 from audio_few_shot_learning_tpu_torch.models.protonets import FewShotEpisodeModel
 from audio_few_shot_learning_tpu_torch.ops.mel import MelSpec
 from audio_few_shot_learning_tpu_torch.ops.specaugment import Draws, spec_augment_views
@@ -106,17 +105,22 @@ METRIC_NAMES = ("loss", "fsl_loss", "cpl_loss")
 RANK_SEED_STRIDE = 2**32  # rank r's generator: seed + 1 + r * stride (runs take seed + i)
 STEP_SPAN = "afsl.train_step"  # the step's span, and the label of its step marks (utils/profiling.py)
 
-# Multi-segment eval batch on the card. Block 0's conv output (channels x
-# F x T in the compute dtype per encoder item, 2.57 MB in bf16 at 128x157)
-# is the largest activation of an eval batch. chip_smoke.py measures the
+# Multi-segment eval batch on the card. Each encoder names what one map
+# holds at the widest point of its eval forward (``eval_item_bytes``):
+# block 0's conv output for the conv encoders (channels x F x T in the
+# compute dtype, 2.57 MB in bf16 at 128x157); for AST a block's residual
+# stream, a LayerNorm output and the MLP hidden (602 tokens x (2 x 768 +
+# 3 072) in bf16, 5.55 MB at 128x512). chip_smoke.py measures the
 # peak of allocated memory over one batch against it on an NVIDIA H100 80GB
 # HBM3 at 700 W: 1.62-1.63 x for the flagship and plain spec configs at
 # s_max 6 and 36, 1.75 x for wav (its log-mel front), at E = 3-16. E is the
-# number of episodes whose EVAL_PEAK_FACTOR x block-0 bytes fill
+# number of episodes whose EVAL_PEAK_FACTOR x those bytes fill
 # EVAL_MEMORY_SHARE of the free memory; chip_smoke.py holds each batch's
 # peak below both. Since block 0 runs as one kernel in eval mode on the
 # card (ops/convblock.py), which never writes that full-resolution map, the
-# rule over-reckons a spec batch's memory on the card.
+# rule over-reckons a conv encoder's spec batch on the card. AST
+# (measure_eval_peak on the same card, the esc50_ast_cpl model): 1.27 x at
+# s_max 1 (E = 16) and at s_max 6 (E = 9).
 EVAL_PEAK_FACTOR = 1.8
 EVAL_MEMORY_SHARE = 0.8
 # Where the device reports no memory (the CPU), the JAX package's rule:
@@ -136,8 +140,8 @@ def multisegment_eval_batch(
 
     ``budget`` (``tpu.eval_segment_budget``, in segment-episodes) wins:
     ``budget // s_max``. On the card: ``EVAL_MEMORY_SHARE * free_bytes``
-    over ``EVAL_PEAK_FACTOR * episode_bytes`` (block 0's output of one
-    episode, ``eval_episode_bytes``). With no memory to read
+    over ``EVAL_PEAK_FACTOR * episode_bytes`` (``eval_episode_bytes``: what
+    the encoder holds over one episode). With no memory to read
     (``free_bytes`` None): the JAX package's segment budget for store rows
     of ``row_elems`` elements."""
     if budget is not None:
@@ -154,27 +158,23 @@ def eval_episode_bytes(
     n_query_rows: int,
     v_support: int,
     v_query: int,
-    channels: int,
-    feat_shape: Tuple[int, int],
-    compute_dtype: str,
+    item_bytes: int,
     chain_rows: int = 0,
     chain_row_bytes: int = 0,
 ) -> int:
-    """Bytes of block 0's conv output over one eval episode: every
-    (item, view) the encoder takes, ``channels x F x T`` in the compute dtype.
-    A wav episode counts its log-mel's shape, not its waveform's. With
-    WaveAugment, plus its chain's working set: ``chain_rows`` augmented
-    rows of ``chain_row_bytes`` each (``WaveAugment.row_bytes``)."""
-    items = n_support * v_support + n_query_rows * v_query
-    itemsize = torch.empty((), dtype=torch_dtype(compute_dtype)).element_size()
-    return items * channels * feat_shape[0] * feat_shape[1] * itemsize + chain_rows * chain_row_bytes
+    """What the encoder holds over one eval episode at its widest point:
+    ``item_bytes`` (the encoder's ``eval_item_bytes``) for every (item,
+    view) it takes. With WaveAugment, plus its chain's working set:
+    ``chain_rows`` augmented rows of ``chain_row_bytes`` each
+    (``WaveAugment.row_bytes``)."""
+    return (n_support * v_support + n_query_rows * v_query) * item_bytes + chain_rows * chain_row_bytes
 
 
 def measure_eval_peak(trainer: "Trainer", store, n_tasks: int, n_way: int, k_shot: int, k_query: int,
                       augment_query: bool, tie_strategy: str = "") -> Dict[str, float]:
     """One multi-segment eval batch at the E the engine reckons for
     ``n_tasks`` tasks, on the card: E, the free memory the rule read, one
-    episode's reckoned block-0 bytes, and the peak of allocated memory over
+    episode's reckoned bytes (``episode_bytes``), and the peak of allocated memory over
     the batch above what was allocated before it, as bytes and over
     ``E x eval_episode_bytes`` (``peak_factor``, held under
     ``EVAL_PEAK_FACTOR`` by its callers)."""
@@ -686,8 +686,8 @@ class Trainer:
             chain_rows = self.exp.waveaug_params.aug_num * (n_sup + (n_qry if vq > 1 else 0))
             chain_row_bytes = self.waveaugment.row_bytes(store.seg_len)
         return eval_episode_bytes(
-            n_sup, n_qry, self.v_support, vq, self.model.backbone.encoder.channels, self.feat_shape,
-            self.exp.tpu.compute_dtype, chain_rows, chain_row_bytes,
+            n_sup, n_qry, self.v_support, vq, self.model.backbone.encoder.eval_item_bytes, chain_rows,
+            chain_row_bytes,
         )
 
     def evaluate(

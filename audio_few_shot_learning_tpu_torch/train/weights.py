@@ -226,6 +226,14 @@ def _skeleton(sd: Dict[str, np.ndarray], exp) -> Dict[str, Any]:
     return {"params": params, "batch_stats": {}}
 
 
+def refuse_ast(exp) -> None:
+    """Raise for an ``AST`` experiment: the JAX package has no such encoder,
+    so no flax tree holds its weights."""
+    if exp.encoder_name == "AST":
+        raise ValueError("encoder_name 'AST': the JAX package has no AST encoder, so its model files "
+                         "cannot be converted to or from the JAX package's")
+
+
 def to_jax_variables(state_dict: Dict[str, Any], exp) -> Dict[str, Any]:
     """This package's ``state_dict`` (a reference ``model.pt``) -> the flax
     ``{"params", "batch_stats"}`` tree of the JAX package's model for
@@ -235,7 +243,9 @@ def to_jax_variables(state_dict: Dict[str, Any], exp) -> Dict[str, Any]:
     ``exp.tpu.bn_per_view_group``; each leaf is the inverse of its
     ``from_jax_variables`` transform. The reference's dead state
     (``num_batches_tracked``, ``projection_head.ln1/ln2``) is dropped. Every
-    other key must find a slot, and every slot a key."""
+    other key must find a slot, and every slot a key. An AST model has no
+    counterpart in the JAX package and is refused by name."""
+    refuse_ast(exp)
     sd = {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v) for k, v in state_dict.items()}
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     used = set()

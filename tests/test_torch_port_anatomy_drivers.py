@@ -77,7 +77,9 @@ CPU = torch.device("cpu")
 
 
 def _fields(cfg) -> dict:
-    return json.loads(json.dumps(dataclasses.asdict(cfg)))
+    d = dataclasses.asdict(cfg)
+    d.pop("ast", None)  # the port's AST group: the JAX package has no AST encoder
+    return json.loads(json.dumps(d))
 
 
 # ---------------------------------------------------------------------------

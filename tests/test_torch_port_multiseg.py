@@ -412,8 +412,17 @@ def test_card_rule_from_free_memory_and_episode_bytes():
         "plain s_max 36": (25, 900, 1, 1, 925),
     }
     for s, qrows, vs, vq, items in cases.values():
-        assert eval_episode_bytes(s, qrows, vs, vq, 64, (128, 157), "bfloat16") == items * mb_per_item
-    assert eval_episode_bytes(25, 150, 1, 1, 64, (128, 157), "float32") == 175 * 2 * mb_per_item
+        assert eval_episode_bytes(s, qrows, vs, vq, mb_per_item) == items * mb_per_item
+    assert eval_episode_bytes(25, 150, 1, 1, 2 * mb_per_item) == 175 * 2 * mb_per_item
+    # an item's bytes, as the conv encoders give them: block 0's channels x F x T in the compute dtype
+    from audio_few_shot_learning_tpu_torch.models.encoders import make_backbone
+
+    for name in ("Hybrid", "CNN"):
+        for dtype, itemsize in (("float32", 4), ("bfloat16", 2)):
+            enc = make_backbone(name, tcfg.CNNConfig(), tcfg.HybridConfig(), (128, 157), dtype).encoder
+            assert enc.eval_item_bytes == 64 * 128 * 157 * itemsize, (name, dtype)
+    assert mb_per_item == make_backbone("Hybrid", tcfg.CNNConfig(), tcfg.HybridConfig(), (128, 157)).encoder.\
+        eval_item_bytes
     episode = 700 * mb_per_item  # 1.80 GB
     free = 70 * gb
     want = int(EVAL_MEMORY_SHARE * free // (EVAL_PEAK_FACTOR * episode))

@@ -53,6 +53,7 @@ jax_rb = _load("jax_parity_runbook", REPO / "scripts" / "parity_runbook.py")
 
 def _fields(exp, mdl) -> dict:
     d = {"experiment": dataclasses.asdict(exp), "model": dataclasses.asdict(mdl)}
+    d["model"].pop("ast", None)  # the port's AST group: the JAX package has no AST encoder
     return json.loads(json.dumps(d))  # tuples as lists, as both packages' configs hold them
 
 

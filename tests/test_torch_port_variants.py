@@ -265,9 +265,9 @@ def test_eval_batch_reckons_the_chain():
     _, _, trainer, store = _wav_bridged(True, True)[1:]
     chain_row = trainer.waveaugment.row_bytes(store.seg_len)
     assert chain_row > 8 * store.seg_len
-    block0 = engine.eval_episode_bytes(6, 6, 3, 3, 16, (128, 32), "float32")
+    block0 = engine.eval_episode_bytes(6, 6, 3, 3, trainer.model.backbone.encoder.eval_item_bytes)
     assert block0 == 12 * 3 * 16 * 128 * 32 * 4
-    assert engine.eval_episode_bytes(6, 6, 3, 3, 16, (128, 32), "float32", 24, chain_row) == block0 + 24 * chain_row
+    assert engine.eval_episode_bytes(6, 6, 3, 3, 16 * 128 * 32 * 4, 24, chain_row) == block0 + 24 * chain_row
 
 
 def test_waveaugment_engine_paths_run(tmp_path):
