@@ -11,8 +11,10 @@
 // (BatchNorm folded into weight [C, 1, 3, 3] and bias [C]),
 //   out[b, k, i, j] = relu(max over the (ph, pw) window of
 //                          conv3x3(x[b, 0], weight[k], padding 1) + bias[k])
-// in floor mode, and writes only the pooled [B, C, H / ph, W / pw] map. The
-// conv rows and columns that floor mode drops are never computed.
+// in floor mode, and writes only the pooled [B, C, H / ph, W / pw] map,
+// channels-last (NHWC: the layout the kernel of blocks 1-3, convblocks.cu,
+// reads with 16-byte copies). The conv rows and columns that floor mode drops
+// are never computed.
 //
 // Arithmetic: products and sums in float32 (fmaf, taps in row-major order),
 // the bias added in float32 after the max (max commutes with adding a
@@ -39,14 +41,24 @@
 //   maxima, ~190 instructions for 162 FMAs at pool 3. The FMAs go tap by
 //   tap over all the thread's conv outputs (18 independent accumulators,
 //   the tap's weight in one register), the window's maximum is a tree
-//   (4 deep for 9, not a chain of 8), and the channel loop is unrolled 4
-//   times, so one channel's maxima overlap the next one's FMAs: together
+//   (4 deep for 9, not a chain of 8), and the channel loop runs 8 channels
+//   unrolled, so one channel's maxima overlap the next one's FMAs: together
 //   these took [200, 1, 128, 157] from 45% to 53% of the FMA bound on the
 //   card. Any other pool reads the patch from shared memory each tap, one
 //   pixel a thread.
-// - Consecutive threads take consecutive pooled pixels of the tile, which
-//   are consecutive in each output channel plane: a warp's stores for one
-//   channel are 128 contiguous bytes (bf16x2 or float2 with PAIR).
+// - A thread keeps the values of those 8 channels of its pixels and stores
+//   them as one 16-byte vector a pixel (bf16; two in float32), into the
+//   pixel's contiguous channels; a channel count that is not a multiple of 8
+//   stores channel by channel. A warp's stores then fall on 32 different
+//   128-byte lines: with 97 registers a thread, 4 blocks of 160 threads an
+//   SM, that cost ~7% at 3 700 maps against channel planes. So a block of
+//   more than 128 threads runs a build bounded to 80 registers
+//   (__launch_bounds__(256, 3)), which fits 5 blocks of 160: at the
+//   flagship's 128x157 (160 threads) 2.06 ms against 2.20 at 3 700 maps, 4%
+//   slower at 200; blocks of 128 (NSynth's 128x126) fit 5 with 97 registers
+//   and ran 11-13% slower bounded. Staging the tile's output in shared
+//   memory to store whole lines, or giving a pixel's channel groups to
+//   neighbouring threads, was slower.
 // The input rows are read with 2-byte (bf16) or 4-byte loads, each warp's
 // contiguous: a 128x157 bf16 row is 314 bytes, so rows do not start on
 // 16-byte boundaries, and the whole fill is 8 MB an episode against the
@@ -59,8 +71,10 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kBoundThreads = 128;  // larger blocks run the register-bounded build
 constexpr int kMaxChannels = 256;
 constexpr int kWeightStride = 12;  // floats a channel: 9 taps, the bias, 2 zeros
+constexpr int kVec = 8;            // channels a thread stores at once
 constexpr int kFill = 8;           // columns a lane loads before it stores them
 constexpr int kSmemLimit = 227 * 1024;
 constexpr int kDefaultSmem = 48 * 1024;
@@ -80,22 +94,40 @@ __device__ __forceinline__ void store1(float* o, int64_t i, float v) { o[i] = v;
 __device__ __forceinline__ void store1(__nv_bfloat16* o, int64_t i, float v) {
   o[i] = __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ void store2(float* o, int64_t i, float a, float b) {
-  *reinterpret_cast<float2*>(o + i) = make_float2(a, b);
+// n channels of one pixel at o[0 .. n): with `vector` (o 16-byte aligned) and
+// n == kVec one 16-byte store (two in float32), else n scalar stores
+__device__ __forceinline__ void store_vec(float* o, const float (&v)[kVec], int n, bool vector) {
+  if (vector && n == kVec) {
+    reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int i = 0; i < n; ++i) o[i] = v[i];
+  }
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* o, int64_t i, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(o + i) = __floats2bfloat162_rn(a, b);
+__device__ __forceinline__ void store_vec(__nv_bfloat16* o, const float (&v)[kVec], int n, bool vector) {
+  if (vector && n == kVec) {
+    uint4 p;
+    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&p);
+#pragma unroll
+    for (int i = 0; i < kVec / 2; ++i) q[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(o) = p;
+  } else {
+    for (int i = 0; i < n; ++i) o[i] = __float2bfloat16_rn(v[i]);
+  }
 }
 
-// Shared-memory bytes of one block; ops/convblock.py block0_smem_bytes mirrors it.
+int round_channels(int c) { return (c + kVec - 1) / kVec * kVec; }
+
+// Shared-memory bytes of one block (the weights of the channels rounded up to
+// kVec, the padding zeros); ops/convblock.py block0_smem_bytes mirrors it.
 int64_t block0_smem_bytes(int c, int tile_rows, int ph, int pw, int wp) {
-  return 4 * ((int64_t)c * kWeightStride + (int64_t)(tile_rows * ph + 2) * (wp * pw + 2));
+  return 4 * ((int64_t)round_channels(c) * kWeightStride + (int64_t)(tile_rows * ph + 2) * (wp * pw + 2));
 }
 
 // PH = PW = 0: the pool (ph, pw) is read at run time and the patch from
 // shared memory; PAIR 2 needs an even pooled width.
-template <typename T, int PH, int PW, int PAIR>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int PH, int PW, int PAIR, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kMaxThreads, MIN_BLOCKS)
     block0_conv_kernel(const T* __restrict__ x, const T* __restrict__ weight,
                        const T* __restrict__ bias, T* __restrict__ out, int h, int w, int c,
                        int ph_arg, int pw_arg, int tile_rows, int tiles_per_map) {
@@ -109,11 +141,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int in_rows = rows * ph + 2;
 
   extern __shared__ float4 smem[];
-  float* ws = reinterpret_cast<float*>(smem);  // [c][kWeightStride]
-  float* tile = ws + c * kWeightStride;        // [in_rows][sw]: input rows r0 * ph - 1 ..
-  for (int i = threadIdx.x; i < c * kWeightStride; i += blockDim.x) {
+  const int cr = (c + kVec - 1) / kVec * kVec;
+  float* ws = reinterpret_cast<float*>(smem);  // [cr][kWeightStride], zeros past c
+  float* tile = ws + cr * kWeightStride;       // [in_rows][sw]: input rows r0 * ph - 1 ..
+  for (int i = threadIdx.x; i < cr * kWeightStride; i += blockDim.x) {
     const int k = i / kWeightStride, e = i - k * kWeightStride;
-    ws[i] = e < 9 ? to_f32(weight[k * 9 + e]) : e == 9 ? to_f32(bias[k]) : 0.f;
+    ws[i] = k >= c ? 0.f : e < 9 ? to_f32(weight[k * 9 + e]) : e == 9 ? to_f32(bias[k]) : 0.f;
   }
   const T* xm = x + (int64_t)map * h * w;
   const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
@@ -139,13 +172,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   const int per_row = wp / PAIR;
   const int items = rows * per_row;
-  const int64_t plane = (int64_t)hp * wp;
-  T* om = out + (int64_t)map * c * plane;
+  T* om = out + (int64_t)map * hp * wp * c;  // the map's [hp][wp][c]
   for (int p = threadIdx.x; p < items; p += blockDim.x) {
     const int r = p / per_row;
     const int col = (p - r * per_row) * PAIR;           // the thread's first pooled column
     const float* src = tile + r * ph * sw + col * pw;   // its patch's top left
-    const int64_t o = (int64_t)(r0 + r) * wp + col;     // its offset in a channel plane
+    const int64_t o = ((int64_t)(r0 + r) * wp + col) * c;  // its first pixel's channels
     if constexpr (PH > 0) {
       constexpr int kRows = PH + 2, kCols = PAIR * PW + 2;
       float patch[kRows][kCols];
@@ -153,43 +185,47 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int a = 0; a < kRows; ++a)
 #pragma unroll
         for (int b = 0; b < kCols; ++b) patch[a][b] = src[a * sw + b];
-#pragma unroll 4
-      for (int k = 0; k < c; ++k) {
-        const float4 q0 = smem[3 * k], q1 = smem[3 * k + 1], q2 = smem[3 * k + 2];
-        const float wk[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
-        // tap by tap over all PAIR * PH * PW conv outputs: independent FMAs
-        // back to back, each tap's weight read from one register; each
-        // output still sums its taps in row-major order
-        float acc[PAIR][PH][PW];
+      // kVec channels at a time, then one vector store a pixel (vector
+      // stores need every pixel's channels 16-byte aligned: c % kVec == 0)
+      const bool vector = c % kVec == 0;
+      for (int k0 = 0; k0 < c; k0 += kVec) {
+        float vals[PAIR][kVec];
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap)
+        for (int kk = 0; kk < kVec; ++kk) {
+          const int k = k0 + kk;  // past c: zero weights and bias, not stored
+          const float4 q0 = smem[3 * k], q1 = smem[3 * k + 1], q2 = smem[3 * k + 2];
+          const float wk[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+          // tap by tap over all PAIR * PH * PW conv outputs: independent FMAs
+          // back to back, each tap's weight read from one register; each
+          // output still sums its taps in row-major order
+          float acc[PAIR][PH][PW];
 #pragma unroll
-          for (int u = 0; u < PAIR; ++u)
+          for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-            for (int dy = 0; dy < PH; ++dy)
+            for (int u = 0; u < PAIR; ++u)
 #pragma unroll
-              for (int dx = 0; dx < PW; ++dx) {
-                const float v = patch[dy + tap / 3][u * PW + dx + tap % 3];
-                acc[u][dy][dx] = tap == 0 ? v * wk[0] : fmaf(v, wk[tap], acc[u][dy][dx]);
-              }
-        float v[PAIR];
+              for (int dy = 0; dy < PH; ++dy)
 #pragma unroll
-        for (int u = 0; u < PAIR; ++u) {
-          // the window's maximum as a tree: PH * PW - 1 maxima, log2 deep
-          float m[PH * PW];
+                for (int dx = 0; dx < PW; ++dx) {
+                  const float v = patch[dy + tap / 3][u * PW + dx + tap % 3];
+                  acc[u][dy][dx] = tap == 0 ? v * wk[0] : fmaf(v, wk[tap], acc[u][dy][dx]);
+                }
 #pragma unroll
-          for (int i = 0; i < PH * PW; ++i) m[i] = acc[u][i / PW][i % PW];
+          for (int u = 0; u < PAIR; ++u) {
+            // the window's maximum as a tree: PH * PW - 1 maxima, log2 deep
+            float m[PH * PW];
 #pragma unroll
-          for (int step = 1; step < PH * PW; step *= 2)
+            for (int i = 0; i < PH * PW; ++i) m[i] = acc[u][i / PW][i % PW];
 #pragma unroll
-            for (int i = 0; i + step < PH * PW; i += 2 * step) m[i] = max_nan(m[i], m[i + step]);
-          v[u] = max_nan(m[0] + q2.y, 0.f);
+            for (int step = 1; step < PH * PW; step *= 2)
+#pragma unroll
+              for (int i = 0; i + step < PH * PW; i += 2 * step) m[i] = max_nan(m[i], m[i + step]);
+            vals[u][kk] = max_nan(m[0] + q2.y, 0.f);
+          }
         }
-        if constexpr (PAIR == 2) {
-          store2(om, k * plane + o, v[0], v[1]);
-        } else {
-          store1(om, k * plane + o, v[0]);
-        }
+        const int n = min(kVec, c - k0);
+#pragma unroll
+        for (int u = 0; u < PAIR; ++u) store_vec(om + o + u * c + k0, vals[u], n, vector);
       }
     } else {
       for (int k = 0; k < c; ++k) {
@@ -204,13 +240,13 @@ __global__ void __launch_bounds__(kMaxThreads)
             for (int tap = 1; tap < 9; ++tap) acc = fmaf(s[(tap / 3) * sw + tap % 3], wk[tap], acc);
             m = dy == 0 && dx == 0 ? acc : max_nan(m, acc);
           }
-        store1(om, k * plane + o, max_nan(m + q2.y, 0.f));
+        store1(om, o + k, max_nan(m + q2.y, 0.f));
       }
     }
   }
 }
 
-template <typename T, int PH, int PW, int PAIR>
+template <typename T, int PH, int PW, int PAIR, int MIN_BLOCKS>
 int launch(const void* x, const void* weight, const void* bias, void* out, int n_maps, int h,
            int w, int c, int ph, int pw, int tile_rows, int tiles_per_map, int threads, int smem,
            void* stream) {
@@ -220,7 +256,7 @@ int launch(const void* x, const void* weight, const void* bias, void* out, int n
       threads > kMaxThreads || threads % 32 != 0 || blocks > 0x7fffffff ||
       smem != block0_smem_bytes(c, tile_rows, ph, pw, wp) || smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  if (PAIR == 2 && (wp % 2 != 0 || reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) != 0))
+  if ((PAIR == 2 && wp % 2 != 0) || reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -228,12 +264,12 @@ int launch(const void* x, const void* weight, const void* bias, void* out, int n
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   static bool smem_set[kMaxDevices];  // one per instantiation and device
   if (smem > kDefaultSmem && !smem_set[dev]) {
-    err = cudaFuncSetAttribute(block0_conv_kernel<T, PH, PW, PAIR>,
+    err = cudaFuncSetAttribute(block0_conv_kernel<T, PH, PW, PAIR, MIN_BLOCKS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
-  block0_conv_kernel<T, PH, PW, PAIR><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+  block0_conv_kernel<T, PH, PW, PAIR, MIN_BLOCKS><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)weight, (const T*)bias, (T*)out, h, w, c, ph, pw, tile_rows,
       tiles_per_map);
   return (int)cudaGetLastError();
@@ -246,19 +282,23 @@ int dispatch(const void* x, const void* weight, const void* bias, void* out, int
   if (n_maps <= 0 || h <= 0 || w <= 0 || c <= 0 || c > kMaxChannels || ph <= 0 || pw <= 0 ||
       ph > h || pw > w || (pair != 1 && pair != 2))
     return (int)cudaErrorInvalidValue;
-#define AFSL_BLOCK0_LAUNCH(PH, PW, PAIR)                                                    \
-  launch<T, PH, PW, PAIR>(x, weight, bias, out, n_maps, h, w, c, ph, pw, tile_rows,        \
-                          tiles_per_map, threads, smem, stream)
-  if (ph == 3 && pw == 3) return pair == 2 ? AFSL_BLOCK0_LAUNCH(3, 3, 2) : AFSL_BLOCK0_LAUNCH(3, 3, 1);
+#define AFSL_BLOCK0_LAUNCH(PH, PW, PAIR, MIN_BLOCKS)                                        \
+  launch<T, PH, PW, PAIR, MIN_BLOCKS>(x, weight, bias, out, n_maps, h, w, c, ph, pw, tile_rows, \
+                                      tiles_per_map, threads, smem, stream)
+  // blocks of more than kBoundThreads threads: the build that fits 5 of 160 an SM
+  if (ph == 3 && pw == 3 && threads > kBoundThreads)
+    return pair == 2 ? AFSL_BLOCK0_LAUNCH(3, 3, 2, 3) : AFSL_BLOCK0_LAUNCH(3, 3, 1, 3);
+  if (ph == 3 && pw == 3) return pair == 2 ? AFSL_BLOCK0_LAUNCH(3, 3, 2, 1) : AFSL_BLOCK0_LAUNCH(3, 3, 1, 1);
   if (pair != 1) return (int)cudaErrorInvalidValue;
-  return AFSL_BLOCK0_LAUNCH(0, 0, 1);
+  return AFSL_BLOCK0_LAUNCH(0, 0, 1, 1);
 #undef AFSL_BLOCK0_LAUNCH
 }
 
 }  // namespace
 
-// x [B, 1, H, W], weight [C, 1, 3, 3], bias [C], out [B, C, H / ph, W / pw],
-// all of one type, contiguous, on the device of `stream`. tile_rows,
+// x [B, 1, H, W], weight [C, 1, 3, 3], bias [C], all of one type and
+// contiguous, and out [B, H / ph, W / pw, C] (a channels-last
+// [B, C, H / ph, W / pw]), on the device of `stream`. tile_rows,
 // tiles_per_map, threads, pair and smem are the wrapper's plan
 // (ops/convblock.py::block0_plan).
 extern "C" int afsl_block0_f32(const void* x, const void* weight, const void* bias, void* out,

@@ -25,8 +25,10 @@ passes the batch's ``(S, Vs, Q, Vq)`` layout down and every BatchNorm, the
 head's included, normalizes each (episode, view, support|query) group with
 its own statistics in train mode (``grouped_batch_norm``). In eval mode all
 apply the running statistics, the conv blocks' folded into the conv weights
-when ``fold_bn_eval`` is set; folded block 0 on the card runs as one
-kernel (``ops/convblock.py``, K4). With ``remat``
+when ``fold_bn_eval`` is set; on the card a folded block runs as one kernel
+(``ops/convblock.py``): K4 for block 0, K5 for blocks 1-3 in bf16, both
+writing channels-last maps (the encoder's output is ``[B, C, F', T']`` with
+NHWC strides there). With ``remat``
 each conv block is recomputed in the backward pass
 (``torch.utils.checkpoint``) instead of holding its full-resolution
 activations; the recompute leaves the running statistics alone, so they
@@ -251,11 +253,15 @@ class ConvBlock(nn.Sequential):
                 f"pool {self.pool} collapses a {x.shape[2]}x{x.shape[3]} map to zero — "
                 "reduce pool_dim or use longer inputs"
             )
-        # block 0 (one input channel) in eval mode on the card: with the
-        # BatchNorm folded, one kernel (K4) runs the whole block and never
-        # writes the full-resolution map; the kernel's wrapper raises on what
-        # it does not take
-        block0_on_card = not self.training and x.shape[1] == 1 and convblock.on_card(x)
+        # eval mode on the card, with the BatchNorm folded: one kernel runs
+        # the whole block and never writes the full-resolution map, K4 for
+        # block 0 (one input channel), K5 for blocks 1-3 (C to C channels)
+        # in bf16; a float32 eval keeps cuDNN for blocks 1-3 (the tensor
+        # cores would take it as TF32). The wrappers raise on what their
+        # kernel does not take
+        eval_on_card = not self.training and convblock.on_card(x)
+        block0_on_card = eval_on_card and x.shape[1] == 1
+        blocks_on_card = eval_on_card and not block0_on_card and x.shape[1] == conv.out_channels
         if self.fold_bn_eval and not self.training:
             # eval BN is a per-channel affine and conv is linear, so
             # BN(conv(x, K, b)) == conv(x, K*inv, b*inv + shift)
@@ -266,10 +272,18 @@ class ConvBlock(nn.Sequential):
                 out = convblock.block0_cuda(x, weight, bias, self.pool)
                 convblock.count_block0(True)
                 return out
+            if blocks_on_card and x.dtype == torch.bfloat16:
+                out = convblock.blocks_cuda(x, weight, bias, self.pool)
+                convblock.count_blocks(True)
+                return out
+            if blocks_on_card:
+                convblock.count_blocks(False)
             x = F.conv2d(x, weight, bias, padding=1)
         else:
             if block0_on_card:
                 convblock.count_block0(False)
+            if blocks_on_card:
+                convblock.count_blocks(False)
             x = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
             x = bn(x, update_stats, view_groups)
         return F.relu(F.max_pool2d(x, (ph, pw)))

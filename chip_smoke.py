@@ -23,8 +23,9 @@ Imports nothing of JAX or of the JAX package. In order it:
    version and the PyTorch library call(s) computing the same function.
    Times are device times: 20 calls captured in one CUDA graph and replayed
    between CUDA events, so the host's cost of issuing a call is not in them;
-   K4 (eval block 0): the profiler's view of one call at item 34's shapes
-   here (one device op, or the run fails), held and timed last (item 34);
+   K4 (eval block 0) and K5 (eval blocks 1-3): the profiler's view of one
+   call at items 34's and 35's shapes here (one device op, or the run
+   fails), held and timed last (items 34, 35);
 4. spec slice phase: on a seeded packed store of the benchmark's geometry
    (35 classes x 40 items x 128x157 f32) and the flagship model with seeded
    weights (Hybrid, 64 channels, pool 3, RNN 64, attention 64/1/256, bf16),
@@ -32,7 +33,8 @@ Imports nothing of JAX or of the JAX package. In order it:
    episodes) and one ``predict_episode``, with the kernels' launch counts set
    to 0 just before each and read just after; the launches per eval batch
    and per prediction must be K1 2 (support, queries), K2 1 and K3 0, and
-   K4 1 (block 0 of the one encoder pass; so on every eval path). Then
+   K4 1 (block 0 of the one encoder pass; so on every eval path) and K5 3
+   (blocks 1-3 in bf16; none in a float32 eval, none in training). Then
    it times 4 more eval runs and 10 more predictions, and runs each once
    more under ``torch.profiler``: device time by kernel and the device's
    busy share of the wall time;
@@ -201,7 +203,7 @@ Imports nothing of JAX or of the JAX package. In order it:
    straight through against 1 epoch, a resume checkpoint and 1 resumed
    epoch from the same seed: step, generator and epoch equal, parameters
    within 2 lr a step, validation accuracy within ``RESUME_VAL_ATOL``;
-28. prints ``{"kernels": [...]}`` (K1-K4, each with its bound, times and
+28. prints ``{"kernels": [...]}`` (K1-K5, each with its bound, times and
    its launches on every path the run took) and, last, the
    ``{"ok": true, ...}`` line;
 29. the parity runbook, after the ``--resume`` phase, in a directory under
@@ -264,7 +266,16 @@ Imports nothing of JAX or of the JAX package. In order it:
    pass), its plain version and today's cuDNN conv + bias ``add_`` +
    max-pool + ReLU. Every eval phase asserts K4's launches (one a batch, a
    prediction and a classifier encode) and every train phase none. It runs last, so its plain version's 9.5-19 GB
-   maps stay out of the other phases' memory.
+   maps stay out of the other phases' memory;
+35. K5 (eval blocks 1-3: a 3x3 conv over 64 channels on the tensor cores,
+   folded bias, max-pool, ReLU) at the flagship's 42x52, 14x17 and 4x5
+   maps of an eval batch (200) and a multi-segment batch (11 100), held to
+   its plain version within the same rounding bound, one node in a CUDA
+   graph, timed beside its bound on the tensor cores and on its bytes, its
+   plain version and today's cuDNN conv + bias ``add_`` + max-pool + ReLU
+   on the NCHW map. Every eval phase asserts K5's launches (3 a batch, a
+   prediction and a classifier encode in bf16) and every train phase
+   none.
 
 The list goes by topic; ``main`` runs the spec phases first, then the wav
 phases (one waveform store on the card at a time), then the CLIs and the
@@ -330,6 +341,15 @@ K4_PROFILE_ATTEMPTS = 5
 # what the tensor cores compute: at that rate, with the 9 taps padded to an
 # mma's K of 16, the pass is bound by its bytes
 K4_MMA_K = 16
+# K5 (eval blocks 1-3, bf16) against its plain version: the same bound as
+# K4's in bf16 (tests/test_torch_port_cuda.py::assert_blocks_close)
+K5_TOL = (2.0 ** -7, 2.0 ** -7)
+# blocks 1-3 of the flagship's 128x157 at an eval batch of 200 maps and a
+# multi-segment batch of 3 episodes at s_max 36 (11 100 maps)
+K5_CASES = (("eval batch, block 1", 200, 42, 52), ("eval batch, block 2", 200, 14, 17),
+            ("eval batch, block 3", 200, 4, 5), ("multi-segment batch, block 1", 11100, 42, 52),
+            ("multi-segment batch, block 2", 11100, 14, 17), ("multi-segment batch, block 3", 11100, 4, 5))
+K5_CHANNELS, K5_POOL = 64, (3, 3)
 SLICE_ATOL, SLICE_ARGMAX_AGREE = 1e-3, 0.99
 WAV_MEAN, WAV_STD = 20.0, 5.0  # roughly z-scores the online log-mel of the seeded clips
 # WaveAugment as bench.py:98-104 trains it: the default chain, 3 augmented copies
@@ -637,6 +657,7 @@ def kernel_phase(dev):
     rows["K2"] = k2
     rows["K3"] = k3_cases(dev, gen)
     rows["K4"] = k4_device_ops(dev)
+    rows["K5"] = k5_device_ops(dev)
     return rows
 
 
@@ -739,6 +760,98 @@ def k4_phase(dev, device_ops):
                 share_of_tensor_core_bound=mma and mma[0] / ms))
             del x, weight, bias, out
             torch.cuda.empty_cache()  # the plain version's 9.5-19 GB maps at 3 700 maps
+    return rows
+
+
+def k5_inputs(gen, dev, maps, h, w):
+    """Block 1-3 input [maps, 64, h, w] as K4 or K5 leaves it (channels-last,
+    non-negative), the folded weight and bias, bf16."""
+    import torch
+
+    x = torch.randn((maps, K5_CHANNELS, h, w), generator=gen, device=dev).abs().bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    weight = (torch.randn((K5_CHANNELS, K5_CHANNELS, 3, 3), generator=gen, device=dev) / 24).bfloat16()
+    bias = (torch.randn(K5_CHANNELS, generator=gen, device=dev) / 2).bfloat16()
+    return x, weight, bias
+
+
+def k5_device_ops(dev) -> dict:
+    """The profiler's view of one K5 call at each of ``K5_CASES``: one device
+    op, ``blocks_conv_kernel``, taken in the kernel phase as K4's is."""
+    import torch
+
+    from audio_few_shot_learning_tpu_torch.ops import convblock
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for case, maps, h, w in K5_CASES:
+        x, weight, bias = k5_inputs(gen, dev, maps, h, w)
+        ops = device_kernels(lambda: convblock.blocks_cuda(x, weight, bias, K5_POOL), attempts=K4_PROFILE_ATTEMPTS)
+        if len(ops) != 1 or "blocks_conv_kernel" not in ops[0]:
+            raise AssertionError(f"K5 {case}: one call ran {ops} on the device (profiler, {K4_PROFILE_ATTEMPTS} traces)")
+        out[case] = ops
+        del x, weight, bias
+    return out
+
+
+def k5_phase(dev, device_ops):
+    """K5 (eval blocks 1-3) against its plain version at the main path's
+    shapes, one device op a call (``device_ops``: the profiler's view, taken
+    in the kernel phase; here the nodes of a CUDA graph captured from a
+    call), timed beside its bound on the tensor cores (the conv's FLOPs over
+    every conv output, 989.4 TFLOP/s) and on its bytes (input, weights and
+    pooled output once), its plain version and today's cuDNN conv + bias
+    add_ + max-pool + ReLU on the NCHW map as the library's."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_few_shot_learning_tpu_torch.ops import convblock
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    atol, rtol = K5_TOL
+    rows = []
+    for case, maps, h, w in K5_CASES:
+        x, weight, bias = k5_inputs(gen, dev, maps, h, w)
+        out = convblock.blocks_cuda(x, weight, bias, K5_POOL)
+        ref = convblock.blocks_reference(x, weight, bias, K5_POOL)
+        s_sum = F.max_pool2d(F.conv2d(x.float().abs(), weight.float().abs(), padding=1), K5_POOL)
+        err = (out.float() - ref.float()).abs()
+        over = (err - atol * s_sum - rtol * ref.float().abs()).max().item()
+        max_err = err.max().item()
+        del ref, s_sum, err
+        if over > 0:
+            raise AssertionError(f"K5 {case} disagrees with its plain version: max error {max_err}, "
+                                 f"{over} beyond the rounding bound")
+
+        def call():
+            return convblock.blocks_cuda(x, weight, bias, K5_POOL)
+
+        before = convblock.blocks_cuda.launches
+        graph_ops = graph_device_ops(call)
+        launched = convblock.blocks_cuda.launches - before
+        if graph_ops != ["kernel"] or launched != 2:  # the warm-up call and the captured one
+            raise AssertionError(f"K5 {case}: one call put {graph_ops} on the stream (graph nodes), "
+                                 f"{launched} launches in two calls")
+        calls = 2 if maps > 1000 else GRAPH_CALLS
+        flops = 2 * 9 * K5_CHANNELS * K5_CHANNELS * h * w * maps
+        b_ms, b_by = bound_ms(nbytes(x, weight, bias, out), 0)
+        t_ms = flops / BF16_DENSE_FLOPS * 1e3
+        x_nchw = x.contiguous()
+        ms = graph_ms(call, calls=calls)
+        plan = convblock.blocks_plan(maps, h, w, *K5_POOL, torch.cuda.get_device_properties(dev).multi_processor_count)
+        rows.append(dict(
+            case=case, shape=[maps, K5_CHANNELS, h, w], dtype="bfloat16", pool=list(K5_POOL),
+            max_abs_err=max_err, tolerance=list(K5_TOL), device_ops_per_call=device_ops[case],
+            graph_nodes_per_call=graph_ops, mode=plan.mode, tile_px=plan.tile_px, rect=[plan.rr, plan.rc, plan.sr],
+            stages=plan.stages, stage_bytes=plan.stage_bytes, tiles=plan.tiles, ctas=plan.ctas,
+            smem_bytes=plan.smem_bytes, useful=plan.useful, ms=ms,
+            plain_ms=graph_ms(lambda: convblock.blocks_reference(x, weight, bias, K5_POOL), calls=calls),
+            library_ms=graph_ms(lambda: F.relu(F.max_pool2d(
+                F.conv2d(x_nchw, weight, padding=1).add_(bias[:, None, None]), K5_POOL)), calls=calls),
+            gflop=flops / 1e9, bound_ms_tensor_cores=t_ms, share_of_tensor_core_bound=t_ms / ms,
+            bound_ms_bytes=b_ms, share_of_byte_bound=b_ms / ms))
+        del x, x_nchw, weight, bias, out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -922,6 +1035,23 @@ def block0_counter():
     return convblock.block0_cuda
 
 
+def blocks_counter():
+    """K5's wrapper (eval blocks 1-3), which counts its launches in ``.launches``."""
+    from audio_few_shot_learning_tpu_torch.ops import convblock
+
+    return convblock.blocks_cuda
+
+
+def k5_per_forward(model) -> int:
+    """K5's launches in one eval forward of ``model``'s conv encoder: one for
+    each of blocks 1-3 in bf16 with the BatchNorm folded (a float32 eval
+    keeps cuDNN there)."""
+    import torch
+
+    enc = model.backbone.encoder
+    return sum(b.fold_bn_eval for b in list(enc.conv_encoder)[1:]) if enc.compute_dtype == torch.bfloat16 else 0
+
+
 def serve_phase(dev, store, input_type, expected, waveaug=None):
     """Trainer.test() and predict_episode on the flagship model, bf16, with
     the launches of K1, K2, K3 per eval batch and per prediction asserted,
@@ -931,27 +1061,28 @@ def serve_phase(dev, store, input_type, expected, waveaug=None):
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels, k4 = kernel_counters(), block0_counter()
+    kernels, k4, k5 = kernel_counters(), block0_counter(), blocks_counter()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(flagship_exp(input_type, waveaug), ModelConfig(), store, test_store=store,
                       device=dev, seed=0)
     trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans
 
-    for k in (*kernels, k4):
+    for k in (*kernels, k4, k5):
         k.launches = 0
     result = trainer.test()
     eval_launches = [k.launches for k in kernels]
-    k4_eval = k4.launches
+    k4_eval, k5_eval, k5_want = k4.launches, k5.launches, k5_per_forward(trainer.model)
     eval_s = [trainer.last_eval_seconds]
     acc = result["mean_accuracy"]
     if not (np.isfinite(acc) and 0.0 <= acc <= 1.0):
         raise AssertionError(f"test accuracy out of range: {result}")
     n_batches = TEST_TASKS // EVAL_BATCH
     per_batch = [n / n_batches for n in eval_launches]
-    if per_batch != expected or k4_eval != n_batches:
+    if per_batch != expected or k4_eval != n_batches or k5_eval != k5_want * n_batches:
         raise AssertionError(
             f"{input_type} eval path launched K1, K2, K3 {per_batch} times per batch "
-            f"({eval_launches} in {n_batches} batches; K4 {k4_eval}); expected {expected} and K4 1"
+            f"({eval_launches} in {n_batches} batches; K4 {k4_eval}, K5 {k5_eval}); expected {expected}, "
+            f"K4 1 and K5 {k5_want}"
         )
 
     def run_eval():
@@ -971,21 +1102,21 @@ def serve_phase(dev, store, input_type, expected, waveaug=None):
     support, query = rows[: N_WAY * K_SHOT], rows[N_WAY * K_SHOT :]
     labels = np.repeat(np.arange(N_WAY), K_SHOT)
     trainer.predict_episode(support, labels, query)  # warm-up
-    for k in (*kernels, k4):
+    for k in (*kernels, k4, k5):
         k.launches = 0
     t0 = time.perf_counter()
     pred, scores = trainer.predict_episode(support, labels, query)
     predict_ms = [1e3 * (time.perf_counter() - t0)]
     predict_launches = [k.launches for k in kernels]
-    k4_predict = k4.launches
+    k4_predict, k5_predict = k4.launches, k5.launches
     if scores.shape != (N_WAY * K_QUERY, N_WAY) or not np.isfinite(scores).all():
         raise AssertionError(f"predict scores malformed: {scores.shape}")
     if pred.shape != (N_WAY * K_QUERY,) or pred.min() < 0 or pred.max() >= N_WAY:
         raise AssertionError(f"predictions malformed: {pred}")
-    if predict_launches != expected or k4_predict != 1:
+    if predict_launches != expected or k4_predict != 1 or k5_predict != k5_want:
         raise AssertionError(
-            f"{input_type} predict path launched K1, K2, K3 {predict_launches} times, K4 {k4_predict}; "
-            f"expected {expected} and K4 1"
+            f"{input_type} predict path launched K1, K2, K3 {predict_launches} times, K4 {k4_predict}, "
+            f"K5 {k5_predict}; expected {expected}, K4 1 and K5 {k5_want}"
         )
 
     def run_predict():
@@ -1007,6 +1138,7 @@ def serve_phase(dev, store, input_type, expected, waveaug=None):
         eval_launches=eval_launches, eval_launches_per_batch=per_batch,
         predict_launches=predict_launches, k4_eval_launches=k4_eval,
         k4_launches_per_eval_batch=k4_eval / n_batches, k4_launches_per_predict=k4_predict,
+        k5_eval_launches=k5_eval, k5_launches_per_eval_batch=k5_eval / n_batches, k5_launches_per_predict=k5_predict,
         eval_profile=eval_profile, predict_profile=predict_profile,
     )
 
@@ -1188,17 +1320,17 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
     chunks = e // (trainer.microbatch or e)
     steps = trainer.steps_per_epoch
     bn_before = bn_counts(trainer.model)
-    k4 = block0_counter()
-    for k in (*kernels, k4):
+    k4, k5 = block0_counter(), blocks_counter()
+    for k in (*kernels, k4, k5):
         k.launches = 0
     epochs_out = [trainer.train_epoch()]
-    launches, k4_launches = [k.launches for k in kernels], k4.launches
+    launches, k4_launches, k5_launches = [k.launches for k in kernels], k4.launches, k5.launches
     bn_moves = [b - a for a, b in zip(bn_before, bn_counts(trainer.model))]
     want = [n * chunks for n in expected]
-    if [n / steps for n in launches] != want or k4_launches:
+    if [n / steps for n in launches] != want or k4_launches or k5_launches:
         raise AssertionError(
             f"train path launched K1, K2, K3 {launches} times in {steps} steps of {chunks} "
-            f"chunk(s), K4 {k4_launches}; expected {want} per step and K4 0 (train mode)"
+            f"chunk(s), K4 {k4_launches}, K5 {k5_launches}; expected {want} per step and K4, K5 0 (train mode)"
         )
     if check_bn and bn_moves != [steps * chunks] * len(bn_moves):
         raise AssertionError(
@@ -1226,7 +1358,7 @@ def train_phase(dev, store, exp, expected, epochs=2, profile_steps=4, check_bn=F
         episode_batch=e, microbatch=trainer.microbatch, chunks=chunks,
         remat=trainer.exp.tpu.remat_enabled(), steps_per_epoch=steps, epochs=epochs_out,
         launches_first_epoch=launches, launches_per_step=[n / steps for n in launches],
-        k4_launches_per_step=k4_launches / steps, bn_updates_first_epoch=bn_moves, step_ms=step_ms, step_ms_median=med,
+        k4_launches_per_step=k4_launches / steps, k5_launches_per_step=k5_launches / steps, bn_updates_first_epoch=bn_moves, step_ms=step_ms, step_ms_median=med,
         train_episodes_per_s_median=1e3 * e / med, peak_mem_gb=peak,
         validate=dict(mean=val[0], std=val[1], seconds=trainer.last_eval_seconds),
         profile_steps=profile_steps, profile=prof,
@@ -2342,20 +2474,24 @@ def entry_points_phase(dev):
         labels = ep.support_labels[0]
         view_launches = [k.launches for k in kernels]
         clf = PrototypicalNetworks(exp, mdl, state_dict=original, device=dev)
-        encode, k4_encode = [], []
+        encode, k4_encode, k5_encode = [], [], []
         for call in (lambda: clf.process_support_set(sup_v, labels), lambda: clf(qry_v)):
             before, k4_before = [k.launches for k in kernels], block0_counter().launches
+            k5_before = blocks_counter().launches
             result = call()
             encode.append([k.launches - b for k, b in zip(kernels, before)])
             k4_encode.append(block0_counter().launches - k4_before)
+            k5_encode.append(blocks_counter().launches - k5_before)
         clf_scores = result.float()
         with torch.inference_mode():
             model_scores = clf.model(sup_v, qry_v, labels, N_WAY).scores.float()
         clf_err = float((clf_scores - model_scores).abs().max())
         if not (clf_err <= CLASSIFIER_ATOL and torch.equal(clf_scores.argmax(-1), model_scores.argmax(-1))):
             raise AssertionError(f"classifier scores {clf_err} off the model's forward, or another argmax")
-        if view_launches != [2, 0, 0] or any(n != [0, 1, 0] for n in encode) or k4_encode != [1, 1]:
-            raise AssertionError(f"views launched {view_launches}, encode calls {encode}, K4 {k4_encode}")
+        if (view_launches != [2, 0, 0] or any(n != [0, 1, 0] for n in encode) or k4_encode != [1, 1]
+                or k5_encode != [k5_per_forward(clf.model)] * 2):
+            raise AssertionError(f"views launched {view_launches}, encode calls {encode}, K4 {k4_encode}, "
+                                 f"K5 {k5_encode}")
         exp32 = dataclasses.replace(exp, tpu=dataclasses.replace(exp.tpu, compute_dtype="float32"))
         pair = []
         for device in (dev, "cpu"):
@@ -2376,7 +2512,7 @@ def entry_points_phase(dev):
             raise AssertionError(f"contrastive_forward gave shapes {shapes} or non-finite values")
         out["classifier"] = dict(
             seconds=time.perf_counter() - t0, view_launches=view_launches, launches_per_encode_call=encode,
-            k4_launches_per_encode_call=k4_encode,
+            k4_launches_per_encode_call=k4_encode, k5_launches_per_encode_call=k5_encode,
             scores_max_abs_err_vs_forward=clf_err, tolerance=CLASSIFIER_ATOL, compute_dtype=exp.tpu.compute_dtype,
             float32_card_vs_cpu_max_abs_err=f32_err, float32_argmax_agreement=agree,
             accuracy=float((clf_scores.argmax(-1) == ep.query_labels[0]).float().mean()),
@@ -2558,7 +2694,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
     from audio_few_shot_learning_tpu_torch.train import engine
 
     exp = ExperimentConfig.from_dict({**exp_dict, "n_testing_tasks": tasks})
-    kernels, k4 = kernel_counters(), block0_counter()
+    kernels, k4, k5 = kernel_counters(), block0_counter(), blocks_counter()
     trainer = engine.Trainer(exp, ModelConfig(), store, test_store=store, device=dev, seed=0)
     aug = exp.test_query_augmentations
     run = dict(n_way=N_WAY, k_shot=K_SHOT, k_query=K_QUERY, augment_query=aug, multisegment=True)
@@ -2574,7 +2710,7 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
             f"{factor:.3f} x the reckoned block-0 bytes (EVAL_PEAK_FACTOR {engine.EVAL_PEAK_FACTOR}) "
             f"and {peak / free:.3f} of the free memory (EVAL_MEMORY_SHARE {engine.EVAL_MEMORY_SHARE})")
 
-    for k in (*kernels, k4):
+    for k in (*kernels, k4, k5):
         k.launches = 0
     result = trainer.test()
     launches = [k.launches for k in kernels]
@@ -2583,11 +2719,11 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
         raise AssertionError(f"multi-segment test accuracy out of range: {result}")
     n_batches = -(-tasks // trainer.last_eval_batch)
     per_batch = [n / n_batches for n in launches]
-    k4_per_batch = k4.launches / n_batches
-    if per_batch != expected or k4_per_batch != 1:
+    k4_per_batch, k5_per_batch = k4.launches / n_batches, k5.launches / n_batches
+    if per_batch != expected or k4_per_batch != 1 or k5_per_batch != k5_per_forward(trainer.model):
         raise AssertionError(f"multi-segment eval launched K1, K2, K3 {per_batch} times per batch "
-                             f"({launches} in {n_batches} batches), K4 {k4_per_batch}; expected {expected} "
-                             f"and K4 1")
+                             f"({launches} in {n_batches} batches), K4 {k4_per_batch}, K5 {k5_per_batch}; "
+                             f"expected {expected}, K4 1 and K5 {k5_per_forward(trainer.model)}")
     # the rate: runs of TIMED_BATCHES full batches of the reckoned E
     timed = TIMED_BATCHES * e
     eval_s = []
@@ -2612,7 +2748,8 @@ def multiseg_phase(dev, store, exp_dict, expected, tasks, tie_tasks=0, profile_r
         episode_block0_gb=episode_bytes / 1e9, peak_over_one_batch_gb=peak / 1e9,
         peak_factor=factor, peak_factor_limit=engine.EVAL_PEAK_FACTOR, peak_share_of_free=peak / free,
         share_limit=engine.EVAL_MEMORY_SHARE,
-        launches=launches, launches_per_batch=per_batch, k4_launches_per_batch=k4_per_batch, batches=n_batches,
+        launches=launches, launches_per_batch=per_batch, k4_launches_per_batch=k4_per_batch,
+        k5_launches_per_batch=k5_per_batch, batches=n_batches,
         timed_tasks=timed, timed_batches=TIMED_BATCHES, timed_runs=timed_runs, eval_seconds=eval_s, eval_episodes_per_s=eps, eval_episodes_per_s_median=float(np.median(eps)),
         other_tie_strategies=ties, profile=prof,
     )
@@ -3009,21 +3146,21 @@ def hostfed_train_phase(dev, store, exp, expected, device_row, epochs=2):
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels, k4 = kernel_counters(), block0_counter()
+    kernels, k4, k5 = kernel_counters(), block0_counter(), blocks_counter()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(exp, ModelConfig(), store, val_store=store, test_store=store, device=dev, seed=0)
     if not trainer.host_mode:
         raise AssertionError("a host store should put the trainer in host mode")
     e, steps = trainer.episode_batch, trainer.steps_per_epoch
     chunks = e // (trainer.microbatch or e)
-    for k in (*kernels, k4):
+    for k in (*kernels, k4, k5):
         k.launches = 0
     epochs_out = [trainer.train_epoch()]
-    launches, k4_launches = [k.launches for k in kernels], k4.launches
+    launches, k4_launches, k5_launches = [k.launches for k in kernels], k4.launches, k5.launches
     want = [n * chunks for n in expected]
-    if [n / steps for n in launches] != want or k4_launches:
+    if [n / steps for n in launches] != want or k4_launches or k5_launches:
         raise AssertionError(f"host-fed train launched K1, K2, K3 {launches} times in {steps} steps, K4 "
-                             f"{k4_launches}; expected {want} per step and K4 0 (train mode)")
+                             f"{k4_launches}, K5 {k5_launches}; expected {want} per step and K4, K5 0 (train mode)")
     trainer.stager.trace = []
     h2d0 = trainer.stager.h2d_bytes
     for _ in range(1, epochs):
@@ -3043,7 +3180,7 @@ def hostfed_train_phase(dev, store, exp, expected, device_row, epochs=2):
     return dict(
         **store_row(store), episode_batch=e, chunks=chunks, steps_per_epoch=steps, epochs=epochs_out,
         launches_first_epoch=launches, launches_per_step=[n / steps for n in launches],
-        k4_launches_per_step=k4_launches / steps, step_ms=step_ms,
+        k4_launches_per_step=k4_launches / steps, k5_launches_per_step=k5_launches / steps, step_ms=step_ms,
         step_ms_median=med, step_ms_min=min(step_ms), train_episodes_per_s_median=1e3 * e / med,
         device_store_step_ms_median=device_row["step_ms_median"], device_store_step_ms_min=min(device_row["step_ms"]),
         device_store_episodes_per_s_median=device_row["train_episodes_per_s_median"],
@@ -3064,19 +3201,22 @@ def hostfed_eval_phase(dev, store, input_type, expected, device_row):
     from audio_few_shot_learning_tpu_torch.config import ModelConfig
     from audio_few_shot_learning_tpu_torch.train.engine import Trainer
 
-    kernels, k4 = kernel_counters(), block0_counter()
+    kernels, k4, k5 = kernel_counters(), block0_counter(), blocks_counter()
     trainer = Trainer(flagship_exp(input_type), ModelConfig(), store, test_store=store, device=dev, seed=0)
     trainer.evaluate(store, EVAL_BATCH, N_WAY, K_SHOT, K_QUERY, True)  # warm-up: cuDNN plans, buffers
-    for k in (*kernels, k4):
+    for k in (*kernels, k4, k5):
         k.launches = 0
     result = trainer.test()
     launches = [k.launches for k in kernels]
     n_batches = TEST_TASKS // EVAL_BATCH
     per_batch = [n / n_batches for n in launches]
-    k4_per_batch = k4.launches / n_batches
-    if per_batch != expected or k4_per_batch != 1 or not 0.0 <= result["mean_accuracy"] <= 1.0:
+    k4_per_batch, k5_per_batch = k4.launches / n_batches, k5.launches / n_batches
+    k5_want = k5_per_forward(trainer.model)
+    if (per_batch != expected or k4_per_batch != 1 or k5_per_batch != k5_want
+            or not 0.0 <= result["mean_accuracy"] <= 1.0):
         raise AssertionError(f"host-fed {input_type} eval launched K1, K2, K3 {per_batch} per batch, K4 "
-                             f"{k4_per_batch} (expected {expected} and K4 1); {result}")
+                             f"{k4_per_batch}, K5 {k5_per_batch} (expected {expected}, K4 1 and K5 {k5_want}); "
+                             f"{result}")
     trainer.stager.trace = []
     eval_s = [trainer.last_eval_seconds]
     for _ in range(4):
@@ -3090,21 +3230,22 @@ def hostfed_eval_phase(dev, store, input_type, expected, device_row):
     support, query = ep.support[0].float().numpy(), ep.query[0].float().numpy()
     labels = np.repeat(np.arange(N_WAY), K_SHOT)
     trainer.predict_episode(support, labels, query)  # warm-up
-    for k in (*kernels, k4):
+    for k in (*kernels, k4, k5):
         k.launches = 0
     t0 = time.perf_counter()
     _, scores = trainer.predict_episode(support, labels, query)
     predict_ms = 1e3 * (time.perf_counter() - t0)
     predict_launches = [k.launches for k in kernels]
-    if (predict_launches != expected or k4.launches != 1 or scores.shape != (N_WAY * K_QUERY, N_WAY)
-            or not np.isfinite(scores).all()):
-        raise AssertionError(f"host-fed predict launched K1, K2, K3 {predict_launches}, K4 {k4.launches}; "
-                             f"scores {scores.shape}")
+    if (predict_launches != expected or k4.launches != 1 or k5.launches != k5_want
+            or scores.shape != (N_WAY * K_QUERY, N_WAY) or not np.isfinite(scores).all()):
+        raise AssertionError(f"host-fed predict launched K1, K2, K3 {predict_launches}, K4 {k4.launches}, "
+                             f"K5 {k5.launches}; scores {scores.shape}")
     eps = [TEST_TASKS / t for t in eval_s]
     med = float(np.median(eps))
     return dict(
         **store_row(store), test=result, launches=launches, launches_per_batch=per_batch,
-        k4_launches_per_batch=k4_per_batch, k4_launches_per_predict=k4.launches, eval_episodes_per_s=eps, eval_episodes_per_s_median=med,
+        k4_launches_per_batch=k4_per_batch, k4_launches_per_predict=k4.launches,
+        k5_launches_per_batch=k5_per_batch, k5_launches_per_predict=k5.launches, eval_episodes_per_s=eps, eval_episodes_per_s_median=med,
         eval_batch_ms_median=1e3 * float(np.median(eval_s)) / n_batches,
         device_store_eval_episodes_per_s_median=device_row["eval_episodes_per_s_median"],
         device_store_eval_batch_ms_median=device_row["eval_batch_ms_median"],
@@ -3595,6 +3736,37 @@ def main() -> int:
         launches_hostfed_predict=host_eval["k4_launches_per_predict"],
         launches_hostfed_wav_predict=host_wav_eval["k4_launches_per_predict"],
         launches_per_classifier_encode_call=entry["classifier"]["k4_launches_per_encode_call"],
+    ))
+    k5 = k5_phase(dev, kern["K5"])
+    print(f"K5 phase ({card}): " + json.dumps(k5), flush=True)
+    r = k5[3]  # block 1 of a multi-segment batch
+    kernels.append(dict(
+        name="block_conv", route="cuda", source="audio_few_shot_learning_tpu_torch/csrc/convblocks.cu",
+        replaces="cuDNN conv (with its NCHW <-> NHWC transposes) + ATen bias add_ + max_pool2d + relu of eval "
+                 "blocks 1-3 (ConvBlock._block); no TPU kernel (XLA fuses the blocks)",
+        launches=slc["k5_eval_launches"], launches_per_eval_batch=slc["k5_launches_per_eval_batch"],
+        launches_predict=slc["k5_launches_per_predict"], launches_per_train_step=train["k5_launches_per_step"],
+        launches_per_train_step_in_chunks=accum["k5_launches_per_step"],
+        max_abs_err=r["max_abs_err"], tolerance=r["tolerance"], ms=r["ms"], kernel_ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms_tensor_cores"], bound_us=1e3 * r["bound_ms_tensor_cores"],
+        bound_by="operations", share_of_bound=r["share_of_tensor_core_bound"],
+        bound_ms_bytes=r["bound_ms_bytes"], library_ms=r["library_ms"],
+        library="cuDNN conv + ATen add_ + max_pool2d + relu on the NCHW map (today's code on the card)",
+        launch_floor_ms=kern["launch_floor_ms"], device_ops_per_call=r["device_ops_per_call"],
+        graph_nodes_per_call=r["graph_nodes_per_call"], cases=k5,
+        launches_per_wav_eval_batch=wav["k5_launches_per_eval_batch"],
+        launches_wav_predict=wav["k5_launches_per_predict"],
+        launches_per_wavaug_eval_batch=wa["k5_launches_per_eval_batch"],
+        launches_per_wav_train_step=wav_train["k5_launches_per_step"],
+        launches_per_multiseg_batch_s6=ms_flag["k5_launches_per_batch"],
+        **{f"launches_per_multiseg_batch_s36_{name}": run["k5_launches_per_batch"] for name, run in s36.items()},
+        launches_per_multiseg_batch_wav=mw["k5_launches_per_batch"],
+        launches_per_wavaug_multiseg_batch=mwa["k5_launches_per_batch"],
+        **{f"launches_per_{name}": row.get("k5_launches_per_step", row.get("k5_launches_per_batch"))
+           for name, row in hostfed.items()},
+        launches_hostfed_predict=host_eval["k5_launches_per_predict"],
+        launches_hostfed_wav_predict=host_wav_eval["k5_launches_per_predict"],
+        launches_per_classifier_encode_call=entry["classifier"]["k5_launches_per_encode_call"],
     ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

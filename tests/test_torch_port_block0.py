@@ -102,16 +102,25 @@ def test_eval_block0_on_the_card_goes_through_the_wrapper(monkeypatch, dtype):
 
 
 def test_only_block0_of_the_hybrid_goes_through_the_wrapper(monkeypatch):
-    """An eval forward of the whole encoder: block 0 through the wrapper,
-    blocks 1-3 (C input channels) on today's code."""
+    """An eval forward of the whole encoder: block 0 through K4's wrapper,
+    blocks 1-3 (C input channels) through K5's (``ops/convblock.py::
+    blocks_cuda``; ``tests/test_torch_port_blocks.py`` holds its routing)."""
     model = StandardHybrid(HybridConfig(pool_dim=(3, 3), hidden_channels=8, seq_type="RNN"), (96, 99),
                            fold_bn_eval=True).eval()
     x = torch.randn((4, 96, 99), generator=torch.Generator().manual_seed(2))
+    blocks_calls = []
+
+    def blocks_wrapper(x, weight, bias, pool):
+        blocks_calls.append(tuple(x.shape))
+        return convblock.blocks_reference(x, weight, bias, pool)
+
     with torch.inference_mode():
         want = model(x)
         with _card(monkeypatch) as calls:
+            monkeypatch.setattr(convblock, "blocks_cuda", blocks_wrapper)
             got = model(x)
     assert calls == [((4, 1, 96, 99), torch.bfloat16, torch.bfloat16, (3, 3))]
+    assert blocks_calls == [(4, 8, 32, 33), (4, 8, 10, 11), (4, 8, 3, 3)]
     assert torch.equal(got, want)
 
 

@@ -233,6 +233,111 @@ def test_block0_kernel_refuses_what_it_does_not_take(cuda):
         convblock.block0_cuda(x, weight.clone().requires_grad_(), bias, (3, 3))
 
 
+# K5 (eval blocks 1-3, bf16): the flagship's blocks 1-3 at an eval batch
+# (42x52, 14x17, 4x5), block 1 at a multi-segment episode, NSynth's
+# (42x42, 14x14, 4x4), fewer channels (padded in the kernel) at pools 2x2,
+# 3x2 and 1x3, a wide map (rectangles and a strip of 6 columns) and a map
+# the size of the pool
+BLOCKS_SHAPES = [(200, 64, 42, 52, (3, 3)), (200, 64, 14, 17, (3, 3)), (200, 64, 4, 5, (3, 3)),
+                 (3700, 64, 42, 52, (3, 3)), (200, 64, 42, 42, (3, 3)), (200, 64, 14, 14, (3, 3)),
+                 (200, 64, 4, 4, (3, 3)), (7, 8, 24, 30, (2, 2)), (5, 16, 20, 31, (3, 2)), (3, 32, 11, 13, (1, 3)),
+                 (2, 64, 42, 400, (3, 3)), (1, 64, 3, 3, (3, 3))]
+
+
+def _blocks_args(dev, b, c, h, w, seed=0):
+    """Block 1-3 input as K4 or K5 leaves it (channels-last, non-negative),
+    the folded weight and bias, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=gen, device=dev).abs().bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    weight = (torch.randn((c, c, 3, 3), generator=gen, device=dev) / (3 * c ** 0.5)).bfloat16()
+    bias = (torch.randn(c, generator=gen, device=dev) / 2).bfloat16()
+    return x, weight, bias
+
+
+def assert_blocks_close(out, ref, x, weight, pool):
+    """K5 against its plain version in bf16, as ``assert_block0_close``: S,
+    per pooled value, bounds every partial sum (the largest sum of |tap| x
+    |input| over its window's conv outputs). Both sum the 9 C products in
+    float32 in their own orders (576 roundings of at most 2^-24 S each side:
+    under 2^-14 S); the plain path also rounds the conv output to bf16
+    before its bias add (2^-8 S), and each side rounds its output once
+    (2^-8 |out|): within 2^-7 S + 2^-7 |out|."""
+    s = F.max_pool2d(F.conv2d(x.float().abs(), weight.float().abs(), padding=1), tuple(pool))
+    err = (out.float() - ref.float()).abs()
+    worst = (err - 2.0 ** -7 * s - 2.0 ** -7 * ref.float().abs()).max().item()
+    assert worst <= 0, f"max error {err.max().item()} beyond the rounding bound by {worst}"
+
+
+@pytest.mark.parametrize("shape", BLOCKS_SHAPES, ids=lambda s: "x".join(map(str, s[:4])) + f"-pool{s[4][0]}{s[4][1]}")
+def test_blocks_kernel_matches_plain(cuda, shape):
+    b, c, h, w, pool = shape
+    x, weight, bias = _blocks_args(cuda, b, c, h, w)
+    before = convblock.blocks_cuda.launches
+    out = convblock.blocks_cuda(x, weight, bias, pool)
+    torch.cuda.synchronize()
+    assert convblock.blocks_cuda.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, c, h // pool[0], w // pool[1])
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    ref = convblock.blocks_reference(x, weight, bias, pool)
+    assert_blocks_close(out, ref, x, weight, pool)
+
+
+def test_blocks_kernel_propagates_nan(cuda):
+    """A NaN in the input reaches every pooled value whose conv windows read
+    it, through the max and the ReLU, as max_pool2d and relu carry it."""
+    x, weight, bias = _blocks_args(cuda, 3, 64, 42, 52, seed=1)
+    x[0, 5, 7, 9] = float("nan")
+    x[2, 0, 0, 0] = float("nan")
+    x[1, 63, 41, 51] = float("nan")  # a row and a column the pool drops: read by conv row 40, column 50 only
+    out = convblock.blocks_cuda(x, weight, bias, (3, 3))
+    ref = convblock.blocks_reference(x, weight, bias, (3, 3))
+    torch.cuda.synchronize()
+    assert torch.isnan(ref).any()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    finite = ~torch.isnan(ref)
+    assert_blocks_close(torch.where(finite, out, 0), torch.where(finite, ref, 0), torch.nan_to_num(x), weight, (3, 3))
+
+
+def test_blocks_kernel_is_one_device_op(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, weight, bias = _blocks_args(cuda, 200, 64, 42, 52, seed=2)
+    convblock.blocks_cuda(x, weight, bias, (3, 3))  # built, loaded and warm
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):  # a trace with no device activity at all is the profiler's loss
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            convblock.blocks_cuda(x, weight, bias, (3, 3))
+            torch.cuda.synchronize()
+        names = [evt.key for evt in prof.key_averages() for _ in range(evt.count)
+                 if str(evt.device_type).endswith("CUDA")]
+        if names:
+            break
+    # the benchmark files it under "conv" (a name with "conv", without "pool" or "batch_norm")
+    assert len(names) == 1 and "blocks_conv_kernel" in names[0], names
+    assert "pool" not in names[0].lower() and "batch_norm" not in names[0].lower()
+
+
+def test_blocks_kernel_refuses_what_it_does_not_take(cuda):
+    x, weight, bias = _blocks_args(cuda, 2, 8, 12, 13, seed=3)
+    with pytest.raises(ValueError, match="channels-last"):
+        convblock.blocks_cuda(x.contiguous(), weight, bias, (3, 3))
+    with pytest.raises(TypeError, match="bfloat16"):
+        convblock.blocks_cuda(x.float(), weight.float(), bias.float(), (3, 3))
+    with pytest.raises(ValueError, match="a multiple of 8"):
+        x12, w12, b12 = _blocks_args(cuda, 2, 12, 12, 13, seed=3)
+        convblock.blocks_cuda(x12, w12, b12, (3, 3))
+    with pytest.raises(ValueError, match="pools up to"):
+        convblock.blocks_cuda(x, weight, bias, (4, 2))
+    with pytest.raises(ValueError, match="does not fit"):
+        convblock.blocks_cuda(x[:, :, :1].contiguous(memory_format=torch.channels_last), weight, bias, (2, 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        convblock.blocks_cuda(x, weight.cpu(), bias, (3, 3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        convblock.blocks_cuda(x, weight.float().requires_grad_().bfloat16(), bias, (3, 3))
+
+
 @pytest.mark.parametrize("n_way,labels", [
     (5, np.repeat(np.arange(5), 5)),
     (7, np.array([0] * 9 + [1] * 2 + [2] * 5 + [3] * 1 + [4] * 4 + [5] * 4)),  # class 6 empty
@@ -354,15 +459,17 @@ def test_eval_path_launches_both_kernels(cuda):
     mdl = ModelConfig.from_dict({"Hybrid": {"hidden_channels": 8}})
     trainer = Trainer(exp, mdl, store, test_store=store)
     specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = convblock.block0_cuda.launches = 0
-    forwards, kernel_forwards = (read_counter(n) or 0 for n in (convblock.BLOCK0_FORWARDS,
-                                                                convblock.BLOCK0_KERNEL_FORWARDS))
+    convblock.blocks_cuda.launches = 0
+    names = (convblock.BLOCK0_FORWARDS, convblock.BLOCK0_KERNEL_FORWARDS, convblock.BLOCKS_FORWARDS,
+             convblock.BLOCKS_KERNEL_FORWARDS)
+    counts = [read_counter(n) or 0 for n in names]
     result = trainer.test()
     assert 0.0 <= result["mean_accuracy"] <= 1.0
-    # per batch: K1 twice (support, queries), block 0 once (one encoder pass), K2 once
-    assert (specaugment.views_cuda.launches, convblock.block0_cuda.launches,
-            protohead.episode_scores_cuda.launches) == (4, 2, 2)
-    assert read_counter(convblock.BLOCK0_FORWARDS) == forwards + 2
-    assert read_counter(convblock.BLOCK0_KERNEL_FORWARDS) == kernel_forwards + 2
+    # per batch: K1 twice (support, queries), block 0 once (one encoder pass),
+    # blocks 1-3 once each (K5, bf16), K2 once
+    assert (specaugment.views_cuda.launches, convblock.block0_cuda.launches, convblock.blocks_cuda.launches,
+            protohead.episode_scores_cuda.launches) == (4, 2, 6, 2)
+    assert [read_counter(n) for n in names] == [counts[0] + 2, counts[1] + 2, counts[2] + 6, counts[3] + 6]
 
 
 @pytest.mark.parametrize("flavor", ["online", "offline"])
@@ -733,15 +840,17 @@ def test_jax_model_file_tests_on_card(cuda, tmp_path):
     trainer = Trainer(exp, mdl, store, test_store=store)
     trainer.model.load_state_dict(ckpt.load_jax_model(path), strict=True)
     specaugment.views_cuda.launches = protohead.episode_scores_cuda.launches = convblock.block0_cuda.launches = 0
-    forwards, kernel_forwards = (read_counter(n) or 0 for n in (convblock.BLOCK0_FORWARDS,
-                                                                convblock.BLOCK0_KERNEL_FORWARDS))
+    convblock.blocks_cuda.launches = 0
+    names = (convblock.BLOCK0_FORWARDS, convblock.BLOCK0_KERNEL_FORWARDS, convblock.BLOCKS_FORWARDS,
+             convblock.BLOCKS_KERNEL_FORWARDS)
+    counts = [read_counter(n) or 0 for n in names]
     result = trainer.test()
     assert 0.0 <= result["mean_accuracy"] <= 1.0
-    # per batch: K1 twice (support, queries), block 0 once (one encoder pass), K2 once
-    assert (specaugment.views_cuda.launches, convblock.block0_cuda.launches,
-            protohead.episode_scores_cuda.launches) == (4, 2, 2)
-    assert read_counter(convblock.BLOCK0_FORWARDS) == forwards + 2
-    assert read_counter(convblock.BLOCK0_KERNEL_FORWARDS) == kernel_forwards + 2
+    # per batch: K1 twice (support, queries), block 0 once (one encoder pass),
+    # blocks 1-3 once each (K5, bf16), K2 once
+    assert (specaugment.views_cuda.launches, convblock.block0_cuda.launches, convblock.blocks_cuda.launches,
+            protohead.episode_scores_cuda.launches) == (4, 2, 6, 2)
+    assert [read_counter(n) for n in names] == [counts[0] + 2, counts[1] + 2, counts[2] + 6, counts[3] + 6]
     for key, value in source.state_dict().items():
         if not key.endswith("num_batches_tracked"):
             assert torch.equal(trainer.model.state_dict()[key].cpu(), value), key

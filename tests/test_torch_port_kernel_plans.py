@@ -320,3 +320,88 @@ def test_block0_plan_refuses_a_row_wider_than_shared_memory(w, takes):
     else:
         with pytest.raises(ValueError, match="shared memory"):
             convblock.block0_plan(1, 3, w, 64, 3, 3)
+
+
+# ----------------------------------------------------------------------------
+# K5 (eval blocks 1-3)
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("maps,h,w,tiling,pitch,stages,stage_bytes,tiles,ctas", [
+    # the multi-segment batch's block 1 (3 x 3 700 maps): rectangles of 2 x 16
+    # pooled pixels (8 slots of 50 input pixels) and the 17th column's strip
+    # of 14 x 1 (44 slots of 5): 8 tiles a map, a copy each (a rectangle's
+    # slots lie its width apart), three stages
+    (11100, 42, 52, (convblock.RECTS, 0, 2, 16, 14), 0, 3, 8 * 50 * 128, 11100 * 8, 132),
+    # its block 2: 20 pooled pixels a map, runs of 32 across maps (at most 28
+    # slots of 17, 21 apart), two stages
+    (11100, 14, 17, (convblock.RUNS, 32, 0, 0, 0), 21, 2, 74 * 1024, 6938, 132),
+    # its block 3: one pooled pixel a map, runs of 16 maps of 5 slots of 5
+    (11100, 4, 5, (convblock.RUNS, 16, 0, 0, 0), 5, 3, 80 * 5 * 128, 694, 132),
+    (3200, 42, 52, (convblock.RECTS, 0, 2, 16, 14), 0, 3, 8 * 50 * 128, 3200 * 8, 132),  # the E=16 batch
+    (200, 42, 52, (convblock.RECTS, 0, 2, 16, 14), 0, 3, 8 * 50 * 128, 1600, 132),  # a prediction
+    # NSynth's 128x126: 4 x 8 rectangles and a strip of 5 x 6, 7 tiles a map
+    (200, 42, 42, (convblock.RECTS, 0, 4, 8, 5), 0, 3, 46 * 1024, 1400, 132),
+    (200, 14, 14, (convblock.RUNS, 32, 0, 0, 0), 14, 3, 28 * 14 * 128, 100, 50),
+    # a wide map: 2 x 16 rectangles and a strip of 6 x 5
+    (2, 42, 400, (convblock.RECTS, 0, 2, 16, 6), 0, 3, 8 * 50 * 128, 2 * (7 * 8 + 3), 59),
+])
+def test_blocks_plan_at_path_shapes(maps, h, w, tiling, pitch, stages, stage_bytes, tiles, ctas):
+    plan = convblock.blocks_plan(maps, h, w, 3, 3)
+    assert (plan.mode, plan.tile_px, plan.rr, plan.rc, plan.sr, plan.pitch) == tiling + (pitch,)
+    assert (plan.stages, plan.stage_bytes, plan.tiles, plan.ctas) == (stages, stage_bytes, tiles, ctas)
+    assert plan.smem_bytes == convblock.BLOCKS_STAGE_BASE + stages * stage_bytes <= SMEM_227K
+
+
+def test_blocks_tiles_cover_every_pooled_pixel_once_within_a_stage():
+    """For every plan: the tiles hold the concatenated maps' pooled pixels
+    exactly once, at most 32 a tile, and every tile's slots fit a stage,
+    which with the others, the ring and the weights fits shared memory."""
+    grid = itertools.product([1, 3, 40], [3, 4, 14, 42, 45], [3, 5, 17, 52, 104, 400],
+                             [(3, 3), (2, 2), (3, 2), (1, 1), (1, 3)])
+    checked = 0
+    for maps, h, w, (ph, pw) in grid:
+        if ph > h or pw > w:
+            continue
+        hp, wp = h // ph, w // pw
+        plan = convblock.blocks_plan(maps, h, w, ph, pw)
+        assert plan.smem_bytes == convblock.BLOCKS_STAGE_BASE + plan.stages * plan.stage_bytes <= SMEM_227K
+        assert plan.stage_bytes <= convblock.stage_limit(plan.stages) and plan.stages in (2, 3)
+        assert plan.stage_bytes % 1024 == 0
+        assert plan.ctas == min(-(-plan.tiles // 2), convblock.H100_SMS)
+        seen = np.zeros((maps, hp, wp), dtype=int)
+        for t in range(plan.tiles):
+            g = convblock.tile_geometry(t, plan, hp, wp, ph, pw, maps * hp * wp)
+            assert 1 <= g["n"] <= convblock.BLOCKS_TEAM_PX
+            for r in range(g["n"]):
+                seen[convblock.tile_pixel(g, r, hp, wp)] += 1
+            assert g["width"] <= min(g["pitch"], convblock.BLOCKS_MAX_BOX)
+            assert g["slots"] * g["pitch"] * convblock.BLOCKS_PIXEL_BYTES <= plan.stage_bytes
+        assert (seen == 1).all()
+        checked += 1
+    assert checked > 300
+
+
+@pytest.mark.parametrize("maps,h,w", [(200, 42, 52), (11100, 42, 52), (11100, 14, 17), (11100, 4, 5)])
+def test_blocks_swizzle_puts_8_pooled_pixels_in_8_banks(maps, h, w):
+    """An ldmatrix reads 8 consecutive pixels of a tile at one window
+    position; the 128-byte swizzle puts chunk j of the stage's pixel p at
+    j ^ (p & 7), and with the plan's pitches the 8 keys differ, also where a
+    tile's rows wrap (within a map; rows past a tile's end repeat its last
+    pixel, which reads the same address). At the flagship's blocks 1-3;
+    NSynth's 128x126 reads 2 ways where its rows wrap (the 42x42 strip of 6
+    columns, 14x14's runs, which keep three stages at their width)."""
+    plan = convblock.blocks_plan(maps, h, w, 3, 3)
+    hp, wp = h // 3, w // 3
+    for t in range(min(plan.tiles, 64)):
+        g = convblock.tile_geometry(t, plan, hp, wp, 3, 3, maps * hp * wp)
+        for first in range(0, g["n"], 8):
+            addrs = {}
+            for r in range(first, first + 8):
+                m, py, px = convblock.tile_pixel(g, min(r, g["n"] - 1), hp, wp)
+                srow = 3 * (py - g["lo0"]) if m == g["m0"] else g["rows0"] + (m - g["m0"] - 1) * (3 * hp + 2) + 3 * py
+                pix = srow * g["pitch"] + 3 * (px - g["col_lo"])
+                addrs[pix] = m
+            keys = [p % 8 for p in addrs]
+            if len(set(addrs.values())) == 1:  # 8 pixels of one map
+                assert len(set(keys)) == len(keys), (t, first)
